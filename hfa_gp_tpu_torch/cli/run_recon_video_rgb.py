@@ -1,0 +1,109 @@
+"""RGB-driven video reenactment on the port (counterpart of
+hfa_gp_tpu/cli/run_recon_video_rgb.py).
+
+    python -m hfa_gp_tpu_torch.cli.run_recon_video_rgb \
+        --dataset_root ./datasets --person person_3 \
+        --model_npz avatar.npz --demo_dir ./demo --render_batch 4
+
+Reads the test frames and labels, renders each batch of `--render_batch`
+frames (encoder → QR subspace → EG3D synthesis → SR), writes
+`{demo_dir}/{demo_name}/%05d.png` and assembles a video. `--model_npz`
+takes the JAX package's flat-npz params (utils/pytree_io.py format),
+converted by utils/convert.py. Without it the params are a seeded random
+init.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from ..data.dataset import HeadDataTest
+from ..models.avatar import heads
+from ..utils import convert
+from ..utils.logging import save_image
+from . import common
+
+SEED = 0
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    common.add_common_flags(p)
+    p.add_argument("--dataset_type", type=str, default="test")
+    p.add_argument("--suffix", type=str, default=".png")
+    p.add_argument("--ds_path", type=str, default=None)
+    p.add_argument("--model_path", type=str, default=None,
+                   help="orbax checkpoint dir (not supported: convert it to "
+                        "a flat npz and pass --model_npz)")
+    p.add_argument("--model_npz", type=str, default=None,
+                   help="params-only npz (JAX pytree_io format)")
+    p.add_argument("--demo_name", type=str, default="demo")
+    p.add_argument("--demo_dir", type=str, default="./demo")
+    p.add_argument("--cat_video", action="store_true", default=False)
+    p.add_argument("--fps", type=int, default=24)
+    p.add_argument("--render_batch", type=int, default=4)
+    p.add_argument("--smooth_sigma", type=float, default=None)
+    return p
+
+
+def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
+    if args.model_path is not None:
+        raise NotImplementedError(
+            "--model_path (orbax checkpoint) is not supported by the port; "
+            "save the params as a flat npz and pass --model_npz")
+    if args.model_npz is not None:
+        return convert.from_jax(convert.load_npz(args.model_npz), device)
+    print("WARNING: no --model_path/--model_npz; using random init")
+    return heads.init_avatar_rgb(torch.Generator().manual_seed(SEED), cfg,
+                                 device)
+
+
+def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
+            label: torch.Tensor) -> torch.Tensor:
+    """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3)."""
+    weights = heads.rgb_get_weights(params, cfg, image)
+    if cfg.out_pose:
+        weights, _pose = weights
+    latent = heads.get_latent(params, weights, cfg)
+    return heads.get_image(params, cfg, latent, label)
+
+
+def main(args) -> None:
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        common.fp32_backends()
+    cfg = common.avatar_config(args)
+    root = f"{args.dataset_root}/{args.dataset}"
+    dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
+                           person=args.person, ds_path=args.ds_path,
+                           suffix=args.suffix, smooth_sigma=args.smooth_sigma)
+    params = load_params(args, cfg, device)
+    save_path = os.path.join(args.demo_dir, args.demo_name)
+    os.makedirs(save_path, exist_ok=True)
+
+    n, bs = len(dataset), max(args.render_batch, 1)
+    frame_idx = 0
+    with torch.inference_mode():
+        for start in range(0, n, bs):
+            items = [dataset[i] for i in range(start, min(start + bs, n))]
+            imgs = torch.stack([it[0] for it in items]).to(device)
+            labels = torch.stack([it[1] for it in items]).to(device)
+            out = reenact(params, cfg, imgs, labels)
+            for frame in out.cpu():
+                save_image(frame, os.path.join(save_path,
+                                               f"{frame_idx:05d}.png"))
+                frame_idx += 1
+
+    gt_dir = dataset.ds_path if args.cat_video else None
+    video = common.write_video(
+        save_path, os.path.join(save_path, f"{args.demo_name}"
+                                f"{'cat' if args.cat_video else 'rec'}.mp4"),
+        fps=args.fps, side_by_side_dir=gt_dir)
+    print(f"==> wrote {frame_idx} frames to {save_path} ({video})")
+
+
+if __name__ == "__main__":
+    main(build_argparser().parse_args())
