@@ -7,17 +7,29 @@ Phases, each printed as it runs; any failure exits non-zero before the
 result line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from `hfa_gp_tpu_torch/csrc`, timed;
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, in fp32, with kernel and plain times (CUDA events,
-     median of 20);
-  4. the main path through its entry point, `hfa_gp_tpu_torch.cli.
+  3. each of the four kernels (sampler and marcher, forward and backward)
+     against its plain PyTorch version on the card, at the main paths'
+     shapes, in fp32, with kernel, plain and library-call times (CUDA
+     events, median of 20) beside the bound computed from the shapes;
+  4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
-     dataset: 4 PNGs of 512², a video, finite frames, and each kernel
-     launched exactly twice per batch;
+     dataset: 4 PNGs of 512², a video, finite frames, and each forward
+     kernel launched exactly twice per batch;
   5. one frame rendered on the card (kernels) and on the CPU (plain
      versions) from the same seeded params;
   6. steady-state frames/s of encoder → subspace → synthesis at batch 8,
-     and the peak device memory (printed, not asserted).
+     and the peak device memory (printed, not asserted);
+  7. the training path through `hfa_gp_tpu_torch.cli.train_rgb.main` at
+     full width, batch 2, on a synthetic train/test dataset: 4 steps that
+     cross --tune_iter, finite losses, the generator untouched before
+     tune_iter and changed after, display and bases PNGs, checkpoints, the
+     four kernels' launch counts; then a resumed run that continues from
+     the saved step; then `run_recon_video_rgb.main --model_path` on the
+     checkpoint;
+  8. one training step's loss and gradients at full width, batch 1, card
+     (kernels) against CPU (plain versions), from the same seeded params;
+  9. steady-state training steps/s and frames/s at batch 2, and the peak
+     device memory (printed, not asserted).
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -49,9 +61,23 @@ SEED = 0
 SAMPLER_ATOL = 1e-4
 #   marcher: the bound of the JAX package's own kernel test
 MARCH_RTOL, MARCH_ATOL = 1e-4, 1e-5
+#   backward kernels: a plane texel sums thousands of fp32 contributions,
+#   on the card with atomics whose order changes from run to run, in the
+#   plain version in grid_sample's own order; a density sums ~N terms of a
+#   running product. Relative to the gradient's scale (max abs)
+BWD_RTOL = 1e-4
 #   card vs CPU image: fp32 sums in other orders through ~40 conv layers;
 #   relative to the image's scale
 E2E_RTOL = 2e-3
+#   card vs CPU, one training step: the same, forward and backward, plus
+#   the atomics; loss relative, each gradient relative to its own scale
+STEP_LOSS_RTOL = 1e-3
+STEP_GRAD_RTOL = 1e-2
+
+# the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
+# memory rate, and fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 
 def fail(msg: str) -> None:
@@ -73,6 +99,25 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time the card could take: the larger of compulsory bytes
+    over the memory rate and fp32 operations over the peak rate."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_flops = n_flops / PEAK_FP32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, the same over want's max abs)."""
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
 
 
 def phase_card() -> str:
@@ -114,6 +159,33 @@ def main_path_points(dev: torch.device, batch: int) -> torch.Tensor:
         .contiguous()
 
 
+def in_bounds_corners(pts: torch.Tensor, h: int, w: int) -> int:
+    """How many (point, plane, corner) triples of the bilinear footprints
+    lie inside the planes (box_warp 1): what the sampler kernels' arithmetic
+    depends on in this run's data."""
+    from hfa_gp_tpu_torch.core.kernels.triplane import project_onto_planes
+    uv = project_onto_planes(2.0 * pts)                     # (B, 3, M, 2)
+    fx = torch.floor(((uv[..., 0] + 1) * w - 1) / 2)
+    fy = torch.floor(((uv[..., 1] + 1) * h - 1) / 2)
+    nx = ((fx >= 0) & (fx < w)).long() + ((fx + 1 >= 0) & (fx + 1 < w)).long()
+    ny = ((fy >= 0) & (fy < h)).long() + ((fy + 1 >= 0) & (fy + 1 < h)).long()
+    return int((nx * ny).sum())
+
+
+def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
+                 n_bytes, n_flops) -> dict:
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, **bound(n_bytes, n_flops),
+             "library_ms": library_ms}
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"call {lib}, bound {entry['bound_ms']:.4f} ms by "
+          f"{entry['bound_by']} ({n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.3f} GFLOP)", flush=True)
+    return entry
+
+
 def phase_kernels(dev: torch.device) -> list[dict]:
     from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
     g = torch.Generator().manual_seed(SEED)
@@ -123,6 +195,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     planes = torch.randn((2, 3, 256, 256, 32), generator=g).to(dev)
     pts = main_path_points(dev, 2)
     off = ((torch.rand((2, 65536, 3), generator=g) - 0.5) * 3.0).to(dev)
+    c = planes.shape[-1]
     err = 0.0
     for p in (pts, off):
         got = triplane.sample_mean(planes, p, 1.0)
@@ -134,16 +207,59 @@ def phase_kernels(dev: torch.device) -> list[dict]:
           f"{tuple(pts.shape)} + {tuple(off.shape)} off-plane)", flush=True)
     if not err <= SAMPLER_ATOL:
         fail(f"sampler kernel disagrees with its plain version: {err}")
+    out = triplane.sample_mean(planes, pts, 1.0)
     ms = cuda_time_ms(lambda: triplane.sample_mean(planes, pts, 1.0))
     plain_ms = cuda_time_ms(lambda: triplane.sample_mean_plain(planes, pts,
                                                                1.0))
-    print(f"    sampler: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+    # the library call: F.grid_sample on the three planes, then the mean
+    # (the plain version is exactly that call; timed again on its own)
+    library_ms = cuda_time_ms(lambda: triplane.sample_from_planes(
+        planes, pts, 1.0).mean(1))
+    corners = in_bounds_corners(pts, 256, 256)
+    n_points = pts.shape[0] * pts.shape[1]
+    # per in-bounds corner and channel a multiply and an add; per point the
+    # /3 of each channel and ~60 operations of coordinates and weights
+    results.append(kernel_entry(
+        "triplane_sampler", "hfa_gp_tpu_torch/csrc/triplane.cu",
+        "hfa_gp_tpu/core/pallas/triplane.py:299", err, ms, plain_ms,
+        library_ms, nbytes(planes, pts, out),
+        corners * 2 * c + n_points * (c + 60)))
+
+    # -- sampler backward: g (2, 786432, 32) → d planes, off-plane too
+    err, rel = 0.0, 0.0
+    for p in (pts, off):
+        cot = torch.randn((2, p.shape[1], c), generator=g).to(dev)
+        got = triplane.sample_mean_backward(cot, planes.shape, p, 1.0)
+        want = triplane.sample_mean_backward_plain(cot, planes.shape, p, 1.0)
+        torch.cuda.synchronize()
+        e, r = rel_err(got, want)
+        err, rel = max(err, e), max(rel, r)
+    print(f"[3] sampler backward kernel vs plain: max abs err {err:.3e}, "
+          f"{rel:.3e} of the gradient's scale (bound {BWD_RTOL:g}; g "
+          f"{tuple(cot.shape)} off-plane after {(2, pts.shape[1], c)})",
           flush=True)
-    results.append({"name": "triplane_sampler", "route": "cuda",
-                    "source": "hfa_gp_tpu_torch/csrc/triplane.cu",
-                    "replaces": "hfa_gp_tpu/core/pallas/triplane.py:299",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    del planes, pts, off
+    if not rel <= BWD_RTOL:
+        fail(f"sampler backward kernel disagrees with its plain version: "
+             f"{rel} of the gradient's scale")
+    cot = torch.randn((2, pts.shape[1], c), generator=g).to(dev)
+    ms = cuda_time_ms(lambda: triplane.sample_mean_backward(
+        cot, planes.shape, pts, 1.0))
+    plain_ms = cuda_time_ms(lambda: triplane.sample_mean_backward_plain(
+        cot, planes.shape, pts, 1.0))
+    # the library call: autograd's backward of F.grid_sample + mean alone
+    # (the plain version also runs the forward)
+    leaf = planes.clone().requires_grad_(True)
+    graph = triplane.sample_mean_plain(leaf, pts, 1.0)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        graph, leaf, cot, retain_graph=True))
+    results.append(kernel_entry(
+        "triplane_sampler_bwd", "hfa_gp_tpu_torch/csrc/triplane_bwd.cu",
+        "hfa_gp_tpu/core/pallas/triplane.py:466", err, ms, plain_ms,
+        library_ms, nbytes(cot, pts, planes),
+        corners * 2 * c + n_points * (c + 60)))
+    # one kernel for both TPU backward kernels (VMEM and HBM accumulator)
+    results[-1]["also_replaces"] = "hfa_gp_tpu/core/pallas/triplane.py:414"
+    del planes, pts, off, cot, leaf, graph, out, got, want
 
     # -- marcher: (2, 16384, 96, 32), the unified pass
     b, r, n, c = 2, 16384, 96, 32
@@ -167,26 +283,57 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     ms = cuda_time_ms(lambda: raymarch.ray_march(colors, dens, depths))
     plain_ms = cuda_time_ms(lambda: raymarch.ray_march_plain(colors, dens,
                                                              depths))
-    print(f"    marcher: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-          flush=True)
-    results.append({"name": "ray_marcher", "route": "cuda",
-                    "source": "hfa_gp_tpu_torch/csrc/raymarch.cu",
-                    "replaces": "hfa_gp_tpu/core/pallas/raymarch.py:27",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    # per midpoint and channel 4 operations, per midpoint ~25 of density
+    # and transmittance; no single PyTorch call computes the march
+    results.append(kernel_entry(
+        "ray_marcher", "hfa_gp_tpu_torch/csrc/raymarch.cu",
+        "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
+        nbytes(colors, dens, depths, *got),
+        b * r * (n - 1) * (4 * c + 25)))
+
+    # -- marcher backward: all three cotangents
+    cots = [torch.randn(x.shape, generator=g).to(dev) for x in want]
+    got = raymarch.ray_march_backward(colors, dens, depths, *cots)
+    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for x, y in zip(got, want):
+        e, r_ = rel_err(x, y)
+        err, rel = max(err, e), max(rel, r_)
+    print(f"[3] marcher backward kernel vs plain: max abs err {err:.3e}, "
+          f"{rel:.3e} of the gradient's scale (bound {BWD_RTOL:g}; "
+          f"cotangents of rgb, depth and weights)", flush=True)
+    if not rel <= BWD_RTOL:
+        fail(f"marcher backward kernel disagrees with its plain version: "
+             f"{rel} of the gradient's scale")
+    ms = cuda_time_ms(lambda: raymarch.ray_march_backward(colors, dens,
+                                                          depths, *cots))
+    plain_ms = cuda_time_ms(lambda: raymarch.ray_march_backward_plain(
+        colors, dens, depths, *cots))
+    # per sample and channel 3 operations (dot product, d colors), per
+    # midpoint ~40 of the two walks; no single PyTorch call computes it
+    results.append(kernel_entry(
+        "ray_marcher_bwd", "hfa_gp_tpu_torch/csrc/raymarch_bwd.cu",
+        "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
+        nbytes(colors, dens, depths, *cots, *got),
+        b * r * (n * 3 * c + (n - 1) * 40)))
+    results[-1]["note"] = ("the TPU kernel has no backward: the JAX package "
+                           "differentiates renderer.ray_march instead")
     return results
 
 
-def write_dataset(root: str, n: int = 4, size: int = 256) -> None:
-    """{root}/nerface_dataset/person_3/test2/cropped_images: n PNGs and
+def write_dataset(root: str, n: int = 4, size: int = 256,
+                  split: str = "test2") -> None:
+    """{root}/nerface_dataset/person_3/{split}/cropped_images: n PNGs and
     test.json (the layout of tests/fixtures.py), OpenCV labels of cameras
     around the mean pose."""
     from PIL import Image
 
     from hfa_gp_tpu_torch.core import camera
-    d = os.path.join(root, "nerface_dataset", "person_3", "test2",
+    d = os.path.join(root, "nerface_dataset", "person_3", split,
                      "cropped_images")
     os.makedirs(d)
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED + (split != "test2"))
     labels = []
     for i in range(n):
         fname = f"f_{i:04d}.png"
@@ -199,11 +346,24 @@ def write_dataset(root: str, n: int = 4, size: int = 256) -> None:
         json.dump({"labels": labels}, f)
 
 
+def reset_launches() -> None:
+    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    triplane.LAUNCHES = triplane.LAUNCHES_BWD = 0
+    raymarch.LAUNCHES = raymarch.LAUNCHES_BWD = 0
+
+
+def read_launches() -> dict[str, int]:
+    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    return {"triplane_sampler": triplane.LAUNCHES,
+            "triplane_sampler_bwd": triplane.LAUNCHES_BWD,
+            "ray_marcher": raymarch.LAUNCHES,
+            "ray_marcher_bwd": raymarch.LAUNCHES_BWD}
+
+
 def phase_main_path(tmp: str) -> dict[str, int]:
     from PIL import Image
 
     from hfa_gp_tpu_torch.cli import run_recon_video_rgb as cli
-    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
     n_frames, batch = 4, 4
     write_dataset(tmp, n_frames)
     args = cli.build_argparser().parse_args([
@@ -220,17 +380,15 @@ def phase_main_path(tmp: str) -> dict[str, int]:
         return out
 
     cli.reenact = checked
-    triplane.LAUNCHES = 0
-    raymarch.LAUNCHES = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         cli.main(args)
     finally:
         cli.reenact = reenact
+    launches = read_launches()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"triplane_sampler": triplane.LAUNCHES,
-                "ray_marcher": raymarch.LAUNCHES}
     out_dir = os.path.join(tmp, "demo", "smoke")
     pngs = sorted(glob.glob(os.path.join(out_dir, "*.png")))
     videos = glob.glob(os.path.join(out_dir, "*.mp4")) \
@@ -247,9 +405,11 @@ def phase_main_path(tmp: str) -> dict[str, int]:
         fail("no video written")
     if len(finite) != n_batches or not all(finite):
         fail(f"non-finite frames: {finite}")
-    for name, count in launches.items():
-        if count != 2 * n_batches:
-            fail(f"{name} launched {count} times, expected {2 * n_batches}")
+    expected = {"triplane_sampler": 2 * n_batches,
+                "ray_marcher": 2 * n_batches,
+                "triplane_sampler_bwd": 0, "ray_marcher_bwd": 0}
+    if launches != expected:
+        fail(f"reenactment launched {launches}, expected {expected}")
     return launches
 
 
@@ -312,6 +472,189 @@ def phase_throughput() -> None:
           flush=True)
 
 
+def phase_train_path(tmp: str) -> dict[str, int]:
+    """[7] train_rgb.main → resumed train_rgb.main → run_recon_video_rgb
+    --model_path. Returns the first run's launch counts."""
+    from hfa_gp_tpu_torch.cli import run_recon_video_rgb, train_rgb
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import checkpoint as ckpt
+    steps, tune_iter, batch, n_bases = 4, 2, 2, 50
+    write_dataset(tmp, 6, split="train")
+    write_dataset(tmp, 4, split="test2")
+    exp = os.path.join(tmp, "exps")
+    base = os.path.join(exp, "smoke")
+
+    def train_args(*extra):
+        return train_rgb.build_argparser().parse_args([
+            "--dataset_root", tmp, "--person", "person_3", "--size", "256",
+            "--batch_size", str(batch), "--exp_path", exp, "--exp_name",
+            "smoke", "--tune_iter", str(tune_iter), "--device", "cuda",
+            *extra])
+
+    reset_launches()
+    t0 = time.perf_counter()
+    train_rgb.main(train_args("--iter", str(steps), "--display_freq",
+                              str(steps), "--save_freq", "2"))
+    launches = read_launches()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+
+    with open(os.path.join(base, "log", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [(r["l2_loss"], r["lpips_loss"]) for r in recs]
+    display = sorted(os.listdir(os.path.join(base, "display")))
+    bases = os.listdir(os.path.join(base, "bases"))
+    ckpts = sorted(os.listdir(os.path.join(base, "checkpoint")))
+    shown = [(round(l2, 5), round(lp, 5)) for l2, lp in losses]
+    print(f"[7] training path: {len(recs)} steps at batch {batch} in "
+          f"{seconds:.2f} s (init, display and checkpoints included), "
+          f"(l2, lpips) per step {shown}, display {display}, {len(bases)} "
+          f"bases PNGs, checkpoints {ckpts}, launches {launches}", flush=True)
+    if len(recs) != steps or not np.isfinite(np.array(losses)).all():
+        fail(f"expected {steps} finite loss records, got {losses}")
+    if display != [f"{steps - 1}recon.png", f"{steps - 1}source.png"] \
+            or len(bases) != n_bases:
+        fail(f"display {display}, {len(bases)} bases PNGs")
+    if ckpts != ["000001", "000003"]:
+        fail(f"checkpoints {ckpts}")
+    # per step: both passes sample (2 forward, 2 backward launches), both
+    # march forward, and only the unified march runs backward, since the
+    # coarse march feeds nothing but the detached fine depths. The display
+    # adds forward launches only: 2 + 2 for the test frame, and 2 + 2 for
+    # each batch of 8 basis directions.
+    n_fwd = 2 * steps + 2 + 2 * -(-n_bases // 8)
+    expected = {"triplane_sampler": n_fwd, "ray_marcher": n_fwd,
+                "triplane_sampler_bwd": 2 * steps, "ray_marcher_bwd": steps}
+    if launches != expected:
+        fail(f"training launched {launches}, expected {expected}")
+
+    # the generator: untouched while step < tune_iter, changed after
+    init = heads.init_avatar_rgb(
+        torch.Generator().manual_seed(train_rgb.SEED), heads.AvatarConfig())
+    moved = {}
+    for name in ckpts:
+        got = ckpt.load_params(os.path.join(base, "checkpoint", name))
+        moved[name] = {top: max(
+            (p.detach() - got[top].get_parameter(n)).abs().max().item()
+            for n, p in init[top].named_parameters())
+            for top in ("encoder", "subspace", "generator")}
+    print(f"    max abs change of the params against the seeded init: {moved}",
+          flush=True)
+    if moved["000001"]["generator"] != 0.0 \
+            or not moved["000003"]["generator"] > 0.0 \
+            or not moved["000001"]["encoder"] > 0.0:
+        fail(f"--tune_iter {tune_iter} not honoured: {moved}")
+
+    # resume: continues from the saved step (4 updates done)
+    args = train_args("--iter", "1", "--display_freq", "100", "--save_freq",
+                      "100", "--resume_ckpt",
+                      os.path.join(base, "checkpoint", "000003"))
+    reset_launches()
+    train_rgb.main(args)
+    resumed = read_launches()
+    with open(os.path.join(base, "log", "metrics.jsonl")) as f:
+        last = json.loads(f.readlines()[-1])
+    print(f"    resumed from step {args.start_iter}: l2 {last['l2_loss']:.5f} "
+          f"lpips {last['lpips_loss']:.5f}, launches {resumed}", flush=True)
+    if args.start_iter != steps or not np.isfinite(
+            [last["l2_loss"], last["lpips_loss"]]).all():
+        fail(f"resume started at {args.start_iter}, last record {last}")
+    if resumed != {"triplane_sampler": 2, "ray_marcher": 2,
+                   "triplane_sampler_bwd": 2, "ray_marcher_bwd": 1}:
+        fail(f"one resumed step launched {resumed}")
+
+    # fit → reenact
+    from PIL import Image
+    demo = os.path.join(tmp, "demo_fit")
+    run_recon_video_rgb.main(run_recon_video_rgb.build_argparser().parse_args(
+        ["--dataset_root", tmp, "--person", "person_3", "--size", "256",
+         "--render_batch", "4", "--demo_dir", demo, "--demo_name", "fit",
+         "--fps", "4", "--device", "cuda", "--model_path",
+         os.path.join(base, "checkpoint", "000003")]))
+    pngs = sorted(glob.glob(os.path.join(demo, "fit", "*.png")))
+    sizes = {Image.open(p).size for p in pngs}
+    print(f"    reenactment from the checkpoint: {len(pngs)} PNGs "
+          f"{sorted(sizes)}", flush=True)
+    if len(pngs) != 4 or sizes != {(512, 512)}:
+        fail(f"reenactment from the checkpoint: {len(pngs)} PNGs {sizes}")
+    return launches
+
+
+def train_setup(dev: str, batch: int):
+    """Seeded full-width params, LPIPS params and a batch on `dev`."""
+    from hfa_gp_tpu_torch.models import lpips
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train.state import init_state
+    from hfa_gp_tpu_torch.utils.convert import ParamTree
+    cfg = heads.AvatarConfig()
+    params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED), cfg,
+                                   dev)
+    lp = ParamTree(lpips.init_lpips(torch.Generator().manual_seed(SEED + 2))) \
+        .to(dev)
+    image, label = reference_inputs(cfg, batch)
+    return cfg, init_state(params), lp, image.to(dev), label.to(dev)
+
+
+def phase_step_card_vs_cpu() -> None:
+    """[8] loss and every gradient of one training step, card vs CPU."""
+    from hfa_gp_tpu_torch.train import rgb
+    batch = 1
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, lp, image, label = train_setup(dev, batch)
+        t0 = time.perf_counter()
+        loss, _ = rgb.loss_fn(state.params, lp, cfg, image, label)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in state.params.named_parameters()
+                 if p.grad is not None}
+        out[dev] = (loss.item(), grads, time.perf_counter() - t0)
+        del state, lp, loss
+    (l_gpu, g_gpu, t_gpu), (l_cpu, g_cpu, t_cpu) = out["cuda"], out["cpu"]
+    if sorted(g_gpu) != sorted(g_cpu):
+        fail("card and CPU give gradients to different parameters")
+    rels = {n: rel_err(g_gpu[n], g_cpu[n])[1] for n in g_cpu
+            if g_cpu[n].abs().max() > 0}
+    worst = sorted(rels, key=rels.get)[-3:][::-1]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"[8] one training step at full width, batch {batch}, card vs CPU: "
+          f"loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {loss_rel:.3e}, bound "
+          f"{STEP_LOSS_RTOL:g}); {len(rels)} gradients, worst max abs diff "
+          f"over the gradient's scale "
+          f"{[(n, float(f'{rels[n]:.3e}')) for n in worst]} (bound "
+          f"{STEP_GRAD_RTOL:g}); card {t_gpu:.2f} s, CPU {t_cpu:.2f} s",
+          flush=True)
+    if not all(torch.isfinite(g).all() for g in g_gpu.values()):
+        fail("non-finite gradient on the card")
+    if not loss_rel <= STEP_LOSS_RTOL:
+        fail(f"card loss {l_gpu} differs from the CPU loss {l_cpu}")
+    if not rels[worst[0]] <= STEP_GRAD_RTOL:
+        fail(f"card gradient of {worst[0]} differs from the CPU's by "
+             f"{rels[worst[0]]} of its scale")
+
+
+def phase_train_throughput() -> None:
+    """[9] steady-state training steps/s at batch 2 (host clock around
+    synchronised steps) and peak device memory."""
+    from hfa_gp_tpu_torch.train import rgb
+    batch, iters, warmup = 2, 5, 2
+    cfg, state, lp, image, label = train_setup("cuda", batch)
+    times = []
+    for i in range(warmup + iters):
+        if i == warmup:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rgb.train_step(state, lp, cfg, image, label, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times[warmup:])) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[9] training, batch {batch}, generator unfrozen: {ms:.2f} ms per "
+          f"step (median of {iters}), {1e3 / ms:.3f} steps/s, "
+          f"{batch * 1e3 / ms:.3f} frames/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -327,12 +670,19 @@ def main() -> None:
     phase_build()
     kernels = phase_kernels(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(tmp)
+        reenact_launches = phase_main_path(tmp)
     phase_card_vs_cpu()
     phase_throughput()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches = phase_train_path(tmp)
+    phase_step_card_vs_cpu()
+    phase_train_throughput()
 
+    # launches: of the training path's first run (4 steps and one display);
+    # the reenactment path's count beside it
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = train_launches[k["name"]]
+        k["launches_reenact"] = reenact_launches[k["name"]]
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "hfa_gp_tpu"))
     if foreign:

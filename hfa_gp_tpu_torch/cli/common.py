@@ -1,6 +1,7 @@
 """Shared CLI plumbing of the port (counterpart of hfa_gp_tpu/cli/common.py):
-the flags `run_recon_video_rgb` reads, config construction and video
-assembly.
+the flags of `train_rgb` and `run_recon_video_rgb` (the reference's names
+and defaults), config construction, weight loading, experiment directories
+and video assembly.
 
 Flags of the JAX CLI that select TPU machinery are accepted for
 command-line parity. Where one asks for something this port does not do,
@@ -11,22 +12,43 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
+import sys
 
 import numpy as np
 import torch
 
+from ..models import lpips as lpips_mod
 from ..models.avatar.heads import AvatarConfig
 from ..models.eg3d.generator import EG3DConfig
+from ..utils import convert
+
+LPIPS_SEED = 777
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--iter", type=int, default=800000)
     p.add_argument("--size", type=int, default=256)
+    p.add_argument("--batch_size", type=int, default=2)
     p.add_argument("--dataset", type=str, default="nerface_dataset")
     p.add_argument("--dataset_root", type=str, default="./datasets")
     p.add_argument("--person", type=str, default="person_3")
+    p.add_argument("--resume_ckpt", type=str, default=None)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--start_iter", type=int, default=0)
+    p.add_argument("--display_freq", type=int, default=5000)
+    p.add_argument("--save_freq", type=int, default=5000)
     p.add_argument("--latent_dim_style", type=int, default=512)
     p.add_argument("--latent_dim_shape", type=int, default=50)
+    p.add_argument("--exp_path", type=str, default="./exps/")
+    p.add_argument("--exp_name", type=str, default="v1")
+    p.add_argument("--tune_iter", type=int, default=50000)
+    p.add_argument("--eg3d_weights", type=str, default=None,
+                   help="generator npz of the JAX package's "
+                        "tools/convert_pickle.py (ffhqrebalanced512-128)")
+    p.add_argument("--lpips_weights", type=str, default=None,
+                   help="npz of the JAX package's tools/convert_lpips.py")
     p.add_argument("--out_pose", action="store_true", default=False)
     p.add_argument("--use_softmax", action="store_true", default=False)
     p.add_argument("--person_2", type=str, default=None,
@@ -68,6 +90,52 @@ def avatar_config(args) -> AvatarConfig:
                         dim_shape=args.latent_dim_shape,
                         use_softmax=args.use_softmax, out_pose=args.out_pose,
                         eg3d=EG3DConfig())
+
+
+def single_process() -> None:
+    """The port trains in one process on one device."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "WORLD_SIZE > 1: training over several processes is not ported")
+
+
+def load_generator_weights(args) -> dict | None:
+    """--eg3d_weights (JAX-layout flat npz) → generator params in the
+    port's layout, or None for a random generator."""
+    if args.eg3d_weights is None:
+        return None
+    return convert.convert_tree(convert.load_npz(args.eg3d_weights))
+
+
+def load_lpips(args, device: torch.device | str = "cpu"):
+    """--lpips_weights (JAX-layout flat npz) → LPIPS params on `device`;
+    without it a seeded random AlexNet, with a warning."""
+    if args.lpips_weights is not None:
+        return convert.from_jax(convert.load_npz(args.lpips_weights), device)
+    print("=" * 70 + "\nWARNING: no --lpips_weights: the LPIPS loss uses "
+          "RANDOM AlexNet\nfeatures (a random-projection distance, not "
+          "perceptual). Convert the\ntorch `lpips` package weights with the "
+          "JAX package's\ntools/convert_lpips.py for real runs.\n" + "=" * 70,
+          file=sys.stderr)
+    g = torch.Generator().manual_seed(LPIPS_SEED)
+    return convert.ParamTree(lpips_mod.init_lpips(g)).to(device)
+
+
+def make_dirs(args) -> dict[str, str]:
+    base = os.path.join(args.exp_path, args.exp_name)
+    dirs = {n: os.path.join(base, n)
+            for n in ("log", "checkpoint", "display", "bases")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    return dirs
+
+
+def save_args(args, dirs: dict[str, str]) -> None:
+    """The run's flags as `args.json` beside the logs."""
+    with open(os.path.join(dirs["log"], "args.json"), "w") as f:
+        json.dump({k: v for k, v in vars(args).items()
+                   if isinstance(v, (int, float, str, bool, type(None)))},
+                  f, indent=2)
 
 
 def fp32_backends() -> None:

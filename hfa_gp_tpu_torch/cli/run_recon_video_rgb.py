@@ -7,10 +7,11 @@ hfa_gp_tpu/cli/run_recon_video_rgb.py).
 
 Reads the test frames and labels, renders each batch of `--render_batch`
 frames (encoder → QR subspace → EG3D synthesis → SR), writes
-`{demo_dir}/{demo_name}/%05d.png` and assembles a video. `--model_npz`
-takes the JAX package's flat-npz params (utils/pytree_io.py format),
-converted by utils/convert.py. Without it the params are a seeded random
-init.
+`{demo_dir}/{demo_name}/%05d.png` and assembles a video. `--model_path`
+takes a checkpoint file written by the port's trainer
+(`cli/train_rgb.py`); `--model_npz` takes the JAX package's flat-npz
+params (utils/pytree_io.py format), converted by utils/convert.py.
+Without either the params are a seeded random init.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ..data.dataset import HeadDataTest
 from ..models.avatar import heads
+from ..train import checkpoint as ckpt
 from ..utils import convert
 from ..utils.logging import save_image
 from . import common
@@ -36,8 +38,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--suffix", type=str, default=".png")
     p.add_argument("--ds_path", type=str, default=None)
     p.add_argument("--model_path", type=str, default=None,
-                   help="orbax checkpoint dir (not supported: convert it to "
-                        "a flat npz and pass --model_npz)")
+                   help="checkpoint file of the port's train_rgb (an Orbax "
+                        "directory of the JAX package raises)")
     p.add_argument("--model_npz", type=str, default=None,
                    help="params-only npz (JAX pytree_io format)")
     p.add_argument("--demo_name", type=str, default="demo")
@@ -51,9 +53,7 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
     if args.model_path is not None:
-        raise NotImplementedError(
-            "--model_path (orbax checkpoint) is not supported by the port; "
-            "save the params as a flat npz and pass --model_npz")
+        return ckpt.load_params(args.model_path, device)
     if args.model_npz is not None:
         return convert.from_jax(convert.load_npz(args.model_npz), device)
     print("WARNING: no --model_path/--model_npz; using random init")

@@ -1,15 +1,19 @@
 """Build and load the package's CUDA kernels.
 
-All sources in `hfa_gp_tpu_torch/csrc/*.cu` are compiled by `nvcc` into
-one shared library with a plain C interface and loaded with `ctypes`:
+Every source in `hfa_gp_tpu_torch/csrc/*.cu` is compiled by its own
+`nvcc`, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with `ctypes`:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/<hash>/libhfa_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o build/<hash>/<name>.o csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/<hash>/libhfa_kernels.so build/<hash>/*.o
 
 The build runs at first use, never at import, from the repository's
 sources only. Its directory (`hfa_gp_tpu_torch/build/`, git-ignored) is
-keyed by a hash of the sources and flags, so an edited source rebuilds.
-A missing `nvcc` or a failed compile raises; nothing falls back.
+keyed by a hash of the sources, headers and flags, so an edited source
+rebuilds. A missing `nvcc` or a failed compile raises; nothing falls
+back.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _LIB: ctypes.CDLL | None = None
 BUILD_LOG: dict = {}
@@ -65,19 +70,42 @@ def library() -> ctypes.CDLL:
     so = os.path.join(out_dir, "libhfa_kernels.so")
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)      # atomic: concurrent builders agree
-        BUILD_LOG.update(seconds=time.perf_counter() - t0,
-                         ptxas=proc.stdout + proc.stderr)
+        BUILD_LOG.update(ptxas=_compile_and_link(srcs, so),
+                         seconds=time.perf_counter() - t0)
     BUILD_LOG["path"] = so
     _LIB = _declare(ctypes.CDLL(so))
     return _LIB
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all, raise on the first that
+    failed; returns their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
+def _compile_and_link(srcs: list[str], so: str) -> str:
+    """One nvcc per source, in parallel, then the link; returns the
+    compilers' output (ptxas -v: registers, shared memory, spills)."""
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(os.path.dirname(so),
+                         f"{os.path.basename(s)[:-3]}.{tag}.o") for s in srcs]
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                    for s, o in zip(srcs, objs)])
+    tmp = f"{so}.{tag}"
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    os.replace(tmp, so)          # atomic: concurrent builds agree
+    for o in objs:
+        os.remove(o)
+    return log
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -88,6 +116,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_triplane_mean.restype = ctypes.c_int
     lib.hfa_ray_march.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march.restype = ctypes.c_int
+    lib.hfa_triplane_mean_bwd.argtypes = [p, p, p, i, i, i, i, i, f, p]
+    lib.hfa_triplane_mean_bwd.restype = ctypes.c_int
+    lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.hfa_ray_march_bwd.restype = ctypes.c_int
     return lib
 
 

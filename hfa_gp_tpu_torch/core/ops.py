@@ -198,3 +198,15 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     else:
         raise NotImplementedError(f"up={up}")
     return y.reshape(b, cout, y.shape[2], y.shape[3])
+
+
+def avg_pool_to(x: torch.Tensor, size: int) -> torch.Tensor:
+    """AdaptiveAvgPool2d((size, size)) for channel-last images (B, H, W, C)
+    whose H and W are integer multiples of `size` (512 → 256 for the
+    training loss)."""
+    b, h, w, c = x.shape
+    if h == size and w == size:
+        return x
+    if h % size or w % size:
+        raise ValueError(f"avg_pool_to: {h}x{w} is no multiple of {size}")
+    return x.reshape(b, size, h // size, size, w // size, c).mean(dim=(2, 4))

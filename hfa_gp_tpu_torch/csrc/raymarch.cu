@@ -1,5 +1,5 @@
-// Ray marcher: EG3D's MipRayMarcher2 compositing, inference only
-// (white_back = False). Replaces the TPU kernel
+// Ray marcher: EG3D's MipRayMarcher2 compositing, forward (white_back =
+// False; the backward is raymarch_bwd.cu). Replaces the TPU kernel
 // hfa_gp_tpu/core/pallas/raymarch.py::_march_kernel (via pallas_ray_march).
 //
 //   colors    (B·R, N, C) fp32     densities, depths (B·R, N) fp32
@@ -23,12 +23,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "raymarch_common.cuh"
 
-__device__ __forceinline__ float softplus(float x) {
-  // log(1 + e^x), stable for any x (jax.nn.softplus's form)
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
+namespace {
 
 __global__ void ray_march_kernel(const float* __restrict__ colors,
                                  const float* __restrict__ densities,
@@ -52,7 +49,7 @@ __global__ void ray_march_kernel(const float* __restrict__ colors,
   for (int k = 0; k < N - 1; ++k) {
     const float d1 = dep[k + 1], s1 = sig[k + 1];
     const float c1 = has_c ? col[(int64_t)(k + 1) * C + c] : 0.0f;
-    const float sigma = softplus((s0 + s1) * 0.5f - 1.0f);
+    const float sigma = hfa::softplus((s0 + s1) * 0.5f - 1.0f);
     const float alpha = 1.0f - expf(-(sigma * (d1 - d0)));
     const float w = alpha * trans;
     if (leader) weights[ray * (N - 1) + k] = w;

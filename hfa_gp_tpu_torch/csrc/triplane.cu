@@ -23,44 +23,31 @@
 // quad packing and one-hot matmuls existed only because TPU gathers are
 // issue-bound; none of them is needed here.
 //
-// The source coordinate is computed with non-contracting intrinsics
-// (no FMA), in the order grid_sample uses: ((u + 1) * W - 1) / 2.
+// The coordinate arithmetic (texels, weights, zeros padding) lives in
+// triplane_common.cuh, shared with the backward kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "triplane_common.cuh"
 
-__device__ __forceinline__ float unnormalize(float u, int size) {
-  // ((u + 1) * size - 1) / 2 without FMA contraction
-  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(u, 1.0f), (float)size),
-                             1.0f), 0.5f);
-}
+namespace {
 
 __device__ __forceinline__ float bilinear(const float* __restrict__ plane,
                                           float u, float v, int H, int W,
                                           int C, int c) {
-  const float ix = unnormalize(u, W);
-  const float iy = unnormalize(v, H);
-  const float fx = floorf(ix);
-  const float fy = floorf(iy);
-  const float we = ix - fx, ww = (fx + 1.0f) - ix;   // east / west column
-  const float ws = iy - fy, wn = (fy + 1.0f) - iy;   // south / north row
-  // validity on the float coordinates: NaN or huge values never reach
-  // the integer conversion
-  const bool x0 = fx >= 0.0f && fx < (float)W;
-  const bool x1 = fx + 1.0f >= 0.0f && fx + 1.0f < (float)W;
-  const bool y0 = fy >= 0.0f && fy < (float)H;
-  const bool y1 = fy + 1.0f >= 0.0f && fy + 1.0f < (float)H;
-  const int xi = x0 || x1 ? (int)fx : 0;
-  const int yi = y0 || y1 ? (int)fy : 0;
+  const hfa::Footprint f = hfa::footprint(u, v, H, W);
+  const int xi = f.xi, yi = f.yi;
   // grid_sample's order: nw, ne, sw, se
   float acc = 0.0f;
-  if (y0 && x0) acc += plane[((size_t)yi * W + xi) * C + c] * (ww * wn);
-  if (y0 && x1) acc += plane[((size_t)yi * W + xi + 1) * C + c] * (we * wn);
-  if (y1 && x0) acc += plane[((size_t)(yi + 1) * W + xi) * C + c] * (ww * ws);
-  if (y1 && x1) acc += plane[((size_t)(yi + 1) * W + xi + 1) * C + c]
-                       * (we * ws);
+  if (f.y0 && f.x0)
+    acc += plane[((size_t)yi * W + xi) * C + c] * (f.ww * f.wn);
+  if (f.y0 && f.x1)
+    acc += plane[((size_t)yi * W + xi + 1) * C + c] * (f.we * f.wn);
+  if (f.y1 && f.x0)
+    acc += plane[((size_t)(yi + 1) * W + xi) * C + c] * (f.ww * f.ws);
+  if (f.y1 && f.x1)
+    acc += plane[((size_t)(yi + 1) * W + xi + 1) * C + c] * (f.we * f.ws);
   return acc;
 }
 

@@ -34,15 +34,19 @@ class AvatarConfig:
 
 
 def init_avatar_rgb(g: torch.Generator, cfg: AvatarConfig,
-                    device: torch.device | str = "cpu") -> ParamTree:
+                    device: torch.device | str = "cpu",
+                    generator_params: dict | None = None) -> ParamTree:
     """Random avatar params from `g`, on `device`. Draw from a CPU
-    generator: the same seed then gives the same params on every device."""
+    generator: the same seed then gives the same params on every device.
+    `generator_params` (a nested dict of tensors in the port's layout)
+    takes the place of the random EG3D generator."""
     tree = {
         "encoder": enc.init_encoder(g, cfg.size, cfg.dim, cfg.dim_shape,
                                     cfg.out_pose),
         "subspace": sub.init_subspace(g, cfg.dim_shape, cfg.eg3d.num_ws,
                                       cfg.dim),
-        "generator": eg3d_gen.init_generator(g, cfg.eg3d),
+        "generator": generator_params if generator_params is not None
+        else eg3d_gen.init_generator(g, cfg.eg3d),
     }
     return ParamTree(tree).to(device)
 

@@ -149,7 +149,8 @@ def sample_importance(z_vals: torch.Tensor, weights: torch.Tensor,
     fine = sample_pdf(z_mid, w[:, 1:-1], n_importance, generator=generator)
     if generator is not None:
         fine = torch.sort(fine, dim=-1).values
-    return fine.reshape(b, r, n_importance, 1)
+    # no gradient through the sample placement (JAX: stop_gradient)
+    return fine.detach().reshape(b, r, n_importance, 1)
 
 
 def _eval_cdf(bins: torch.Tensor, cdf: torch.Tensor, x: torch.Tensor,
@@ -203,7 +204,8 @@ def sample_importance_windowed(z_vals: torch.Tensor, weights: torch.Tensor,
         frac = (strata + jitter) / n_per
     u = (f_lo + frac * (f_hi - f_lo)).reshape(nr, n_windows * n_per)
     fine = sample_pdf(bins, w, n_windows * n_per, u=u)
-    return fine.reshape(b, r, n_windows * n_per, 1)
+    # no gradient through the sample placement (JAX: stop_gradient)
+    return fine.detach().reshape(b, r, n_windows * n_per, 1)
 
 
 # -- compositing ----------------------------------------------------------------
@@ -239,7 +241,10 @@ def render_rays(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
                 generator: torch.Generator | None = None):
     """planes (B, 3, H, W, C); rays (B, R, 3) → (features (B, R, 32),
     depth (B, R, 1), weight sum (B, R, 1)). Two sampler launches and two
-    marcher launches per call when depth_resolution_importance > 0."""
+    marcher launches per call when depth_resolution_importance > 0. Under
+    autograd the backward launches the sampler's backward kernel twice and
+    the marcher's once: the coarse march feeds only the detached fine
+    depths, so its backward never runs."""
     b, r, _ = ray_origins.shape
     planes = planes.contiguous()
 

@@ -1,12 +1,16 @@
 """The port's two kernel modules (core/kernels/{triplane,raymarch}.py):
-their plain versions against the JAX package, the dispatch of the
-wrappers, and (marked `gpu`, card only) each CUDA kernel against its
-plain version.
+their plain versions, forward and backward, against the JAX package, the
+dispatch of the wrappers, and (marked `gpu`, card only) each CUDA kernel
+against its plain version.
 
 Tolerances: the sampler is an fp32 bilinear lookup whose texel coordinate
 is computed in another rounding order than JAX's ((u+1)·W−1)/2 vs
 (u+1)·(W/2)−0.5), 1e-5 on unit-normal planes. The marcher uses the JAX
-package's own kernel test bound, rtol 1e-4 / atol 1e-5.
+package's own kernel test bound, rtol 1e-4 / atol 1e-5. Gradients are held
+to 1e-4 × the gradient's scale (max abs): a plane texel or a density sums
+many fp32 contributions in another order. On the card the sampler's
+backward kernel sums with atomics, whose order changes from run to run,
+which the same bound covers.
 """
 
 import jax
@@ -156,6 +160,131 @@ def test_wrappers_raise_on_other_devices():
         raymarch.ray_march(colors, dens, depths)
 
 
+def _assert_grad_close(got, want, rel=1e-4):
+    want = np.asarray(want)
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rel,
+                               atol=rel * scale)
+
+
+@pytest.mark.parametrize("box_warp", [1.0, 1.6])
+def test_sampler_backward_plain_matches_jax_grad(box_warp):
+    planes, pts = _planes_and_points(7)
+    g = np.random.default_rng(7).standard_normal(
+        (planes.shape[0], pts.shape[1], planes.shape[-1])).astype(np.float32)
+    want = jax.grad(lambda p: jnp.sum(jrnd.sample_from_planes(
+        p, jnp.asarray(pts), box_warp).mean(1) * g))(jnp.asarray(planes))
+    got = triplane.sample_mean_backward_plain(
+        torch.from_numpy(g), planes.shape, torch.from_numpy(pts), box_warp)
+    assert got.shape == planes.shape
+    _assert_grad_close(got.numpy(), want)
+
+
+def test_sampler_backward_plain_matches_jax_windowed_vjp():
+    """The TPU backward kernel itself: the custom VJP of the windowed
+    sampler in interpret mode, fp32, a slab that covers the whole plane."""
+    res, n_depth, hw, c, b = 16, 8, 32, 32, 1
+    kp, kc = jax.random.split(jax.random.PRNGKey(4))
+    planes = np.array(jax.random.normal(kp, (b, 3, hw, hw, c)))
+    coords = np.array(_ray_grid_coords(kc, res, n_depth, b=b))
+    g = np.random.default_rng(8).standard_normal(
+        (b, coords.shape[1], c)).astype(np.float32)
+
+    def loss(p):
+        f = jtp.sample_from_planes_windowed(
+            p, jnp.asarray(coords), 1.0, jrnd._PLANE_INV, res=res,
+            n_depth=n_depth, tile=8, depth_window=4, slab=(hw, hw),
+            dtype=jnp.float32, interpret=True)
+        return jnp.sum(f.mean(1) * g)
+
+    want = jax.grad(loss)(jnp.asarray(planes))
+    got = triplane.sample_mean_backward_plain(
+        torch.from_numpy(g), planes.shape, torch.from_numpy(coords), 1.0)
+    _assert_grad_close(got.numpy(), want)
+
+
+def _march_cotangents(seed, b, r, n, c):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, r, c)).astype(np.float32),
+            rng.standard_normal((b, r, 1)).astype(np.float32),
+            rng.standard_normal((b, r, n - 1, 1)).astype(np.float32))
+
+
+@pytest.mark.parametrize("which", ["all", "rgb", "depth", "weights"])
+def test_marcher_backward_plain_matches_jax_grad(which):
+    colors, densities, depths = _march_inputs(8)
+    cots = _march_cotangents(8, *colors.shape)
+    used = [cot if which in ("all", name) else None
+            for name, cot in zip(("rgb", "depth", "weights"), cots)]
+    cfg = jrnd.RenderConfig()
+
+    def loss(col, den):
+        outs = jrnd.ray_march(col, den, jnp.asarray(depths), cfg)
+        return sum(jnp.sum(o * g) for o, g in zip(outs, used)
+                   if g is not None)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(colors),
+                                          jnp.asarray(densities))
+    got = raymarch.ray_march_backward_plain(
+        *(torch.from_numpy(a) for a in (colors, densities, depths)),
+        *(None if g is None else torch.from_numpy(g) for g in used))
+    for g_, w_ in zip(got, want):
+        assert g_.shape == w_.shape
+        if not np.abs(np.asarray(w_)).max():
+            # depth and weights do not depend on the colours
+            assert which in ("depth", "weights") and not g_.abs().max()
+            continue
+        _assert_grad_close(g_.numpy(), w_)
+
+
+def test_backward_wrappers_route_cpu_tensors_to_plain_versions():
+    planes, pts = (torch.from_numpy(a) for a in _planes_and_points(9))
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (planes.shape[0], pts.shape[1], planes.shape[-1])).astype(np.float32))
+    n_s, n_m = triplane.LAUNCHES_BWD, raymarch.LAUNCHES_BWD
+    torch.testing.assert_close(
+        triplane.sample_mean_backward(g, planes.shape, pts, 1.0),
+        triplane.sample_mean_backward_plain(g, planes.shape, pts, 1.0),
+        rtol=0, atol=0)
+    colors, dens, depths = (torch.from_numpy(a) for a in _march_inputs(9))
+    cots = [torch.from_numpy(a) for a in _march_cotangents(9, *colors.shape)]
+    for got, want in zip(
+            raymarch.ray_march_backward(colors, dens, depths, *cots),
+            raymarch.ray_march_backward_plain(colors, dens, depths, *cots)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (triplane.LAUNCHES_BWD, raymarch.LAUNCHES_BWD) == (n_s, n_m)
+    with pytest.raises(ValueError):
+        triplane.sample_mean_backward(g.to("meta"), planes.shape,
+                                      pts.to("meta"), 1.0)
+    with pytest.raises(ValueError):
+        raymarch.ray_march_backward(colors.to("meta"), dens.to("meta"),
+                                    depths.to("meta"))
+
+
+def test_cpu_wrappers_are_differentiable_like_the_plain_versions():
+    """On the CPU the wrappers are the plain versions, autograd included:
+    the reference the card's autograd Functions are held to."""
+    planes, pts = (torch.from_numpy(a) for a in _planes_and_points(10))
+    planes.requires_grad_(True)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (planes.shape[0], pts.shape[1], planes.shape[-1])).astype(np.float32))
+    (got,) = torch.autograd.grad(triplane.sample_mean(planes, pts, 1.0),
+                                 planes, g)
+    torch.testing.assert_close(
+        got, triplane.sample_mean_backward_plain(g, planes.shape, pts, 1.0),
+        rtol=0, atol=0)
+    colors, dens, depths = (torch.from_numpy(a) for a in _march_inputs(10))
+    colors.requires_grad_(True)
+    dens.requires_grad_(True)
+    cots = [torch.from_numpy(a) for a in _march_cotangents(10, *colors.shape)]
+    got = torch.autograd.grad(raymarch.ray_march(colors, dens, depths),
+                              [colors, dens], cots)
+    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
+    for g_, w_ in zip(got, want):
+        _assert_grad_close(g_.numpy(), w_.numpy(), rel=1e-6)
+
+
 # -- on the card -------------------------------------------------------------
 
 
@@ -202,3 +331,88 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         raymarch.ray_march(colors, dens, depths, white_back=True)
     with pytest.raises(ValueError):
         raymarch.ray_march(colors, dens[..., :-1, :], depths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,m", [(32, 1000), (40, 77), (8, 5)])
+def test_sampler_backward_kernel_matches_plain(cuda, c, m):
+    planes, pts = _planes_and_points(11, c=c, m=m)
+    pts = torch.from_numpy(pts).to(cuda)
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (planes.shape[0], m, c)).astype(np.float32)).to(cuda)
+    n = triplane.LAUNCHES_BWD
+    got = triplane.sample_mean_backward(g, planes.shape, pts, 1.0)
+    torch.cuda.synchronize()
+    assert triplane.LAUNCHES_BWD == n + 1
+    want = triplane.sample_mean_backward_plain(g, planes.shape, pts, 1.0)
+    _assert_grad_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,n,c", [(37, 16, 32), (5, 7, 35), (3, 2, 3),
+                                   (4, 1, 8)])
+@pytest.mark.parametrize("which", ["all", "rgb", "weights"])
+def test_marcher_backward_kernel_matches_plain(cuda, r, n, c, which):
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(12, r=r, n=n, c=c))
+    cots = [torch.from_numpy(a).to(cuda) if which in ("all", name) else None
+            for name, a in zip(("rgb", "depth", "weights"),
+                               _march_cotangents(12, 2, r, n, c))]
+    n0 = raymarch.LAUNCHES_BWD
+    got = raymarch.ray_march_backward(colors, dens, depths, *cots)
+    torch.cuda.synchronize()
+    assert raymarch.LAUNCHES_BWD == n0 + 1
+    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
+    for g_, w_ in zip(got, want):
+        scale = max(float(w_.abs().max()), 1e-6)
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_autograd_through_the_kernels_matches_plain(cuda):
+    """A loss over sampler → marcher: autograd through the two Functions
+    launches both backward kernels and gives the plain versions'
+    gradients; under inference_mode the forward records nothing."""
+    planes, pts = _planes_and_points(13, m=37 * 16)
+    planes = torch.from_numpy(planes).to(cuda).requires_grad_(True)
+    pts = torch.from_numpy(pts).to(cuda)
+    _, dens, depths = (torch.from_numpy(a).to(cuda)
+                       for a in _march_inputs(13))
+    dens.requires_grad_(True)
+    cots = [torch.from_numpy(a).to(cuda)
+            for a in _march_cotangents(13, 2, 37, 16, 32)]
+
+    def loss(sample, march):
+        colors = sample(planes, pts, 1.0).reshape(2, 37, 16, 32)
+        return sum((o * g).sum() for o, g in
+                   zip(march(colors, dens, depths), cots))
+
+    n_s, n_m = triplane.LAUNCHES_BWD, raymarch.LAUNCHES_BWD
+    got = torch.autograd.grad(loss(triplane.sample_mean, raymarch.ray_march),
+                              [planes, dens])
+    torch.cuda.synchronize()
+    assert (triplane.LAUNCHES_BWD, raymarch.LAUNCHES_BWD) == (n_s + 1,
+                                                              n_m + 1)
+    want = torch.autograd.grad(loss(triplane.sample_mean_plain,
+                                    raymarch.ray_march_plain), [planes, dens])
+    for g_, w_ in zip(got, want):
+        _assert_grad_close(g_.cpu().numpy(), w_.cpu().numpy())
+    with torch.inference_mode():
+        out = triplane.sample_mean(planes, pts, 1.0)
+    assert not out.requires_grad
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_gradients_they_cannot_give(cuda):
+    planes, pts = (torch.from_numpy(a).to(cuda)
+                   for a in _planes_and_points(14))
+    with pytest.raises(ValueError):
+        triplane.sample_mean(planes, pts.requires_grad_(True), 1.0)
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(14))
+    with pytest.raises(ValueError):
+        raymarch.ray_march(colors, dens, depths.requires_grad_(True))
+    with pytest.raises(ValueError):
+        raymarch.ray_march_backward(
+            colors, dens, depths.detach(),
+            torch.zeros(colors.shape[:2], device=cuda))

@@ -183,3 +183,49 @@ def test_render_rays_matches_jax(fine):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-4,
                                    atol=1e-4)
     assert float(np.asarray(want[2]).max()) > 0.1     # rays hit something
+
+
+@pytest.mark.parametrize("fine", ["global", "stratified"])
+def test_render_rays_gradients_match_jax(fine):
+    """d(scalar of all three outputs)/d(planes, decoder params) against
+    jax.grad of the JAX render_rays: the exact fp32 path for "global", the
+    windowed sampler's custom VJP (interpret mode, fp32 whole-plane slab)
+    for "stratified". The fine depths carry no gradient (JAX:
+    stop_gradient); without the detach in the port the coarse densities
+    would get one through the fine sample coordinates. Bound: 1e-4 × each
+    gradient's scale."""
+    planes, dp, o, d = _render_inputs(8)
+    rng = np.random.default_rng(8)
+    cots = [rng.standard_normal(s).astype(np.float32)
+            for s in ((2, 256, 32), (2, 256, 1), (2, 256, 1))]
+    jcfg = small_config().render
+    if fine == "stratified":
+        jcfg = dataclasses.replace(
+            jcfg, use_pallas_sampler=True, pallas_interpret=True,
+            sampler_dtype=jnp.float32, sampler_tile=8, sampler_slab=(32, 40))
+
+    def jloss(p, dec):
+        outs = jrnd.render_rays(dec, jcfg, p, jnp.asarray(o), jnp.asarray(d))
+        return sum(jnp.sum(out * g) for out, g in zip(outs, cots))
+
+    want_p, want_d = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(planes), dp)
+
+    tdp = convert.from_jax(dp).requires_grad_(True)
+    tplanes = _t(planes).requires_grad_(True)
+    outs = trnd.render_rays(tdp, torch_small_config(fine).render, tplanes,
+                            _t(o), _t(d))
+    loss = sum((out * _t(g)).sum() for out, g in zip(outs, cots))
+    names = [n for n, _ in tdp.named_parameters()]
+    grads = torch.autograd.grad(loss, [tplanes, *tdp.parameters()])
+
+    def close(got, want):
+        want = np.asarray(want)
+        scale = float(np.abs(want).max())
+        assert scale > 0
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+    close(grads[0], want_p)
+    for name, got in zip(names, grads[1:]):
+        layer, leaf = name.split(".")
+        close(got, want_d[layer][leaf])

@@ -191,10 +191,12 @@ def test_cli_random_init_and_side_by_side(small_cli_config, dataset_root,
                                    ["--no_pallas_sampler"],
                                    ["--trace_dir", "x"],
                                    ["--person_2", "p"],
-                                   ["--model_path", "ckpt"]])
+                                   ["--model_path", REPO]])
 def test_cli_raises_on_what_the_port_does_not_do(small_cli_config,
                                                  dataset_root, tmp_path,
                                                  flags):
+    """The last case: --model_path reads the files the port's trainer
+    writes; a directory (an Orbax checkpoint of the JAX package) raises."""
     with pytest.raises(NotImplementedError):
         run_recon_video_rgb.main(_cli_args(dataset_root,
                                            str(tmp_path / "demo"), *flags))
