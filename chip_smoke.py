@@ -7,7 +7,8 @@ Phases, each printed as it runs; any failure exits non-zero before the
 result line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
   2. the build of the CUDA kernels from `hfa_gp_tpu_torch/csrc`, timed;
-  3. each of the four kernels (sampler and marcher, forward and backward)
+  3. each kernel (sampler and marcher, forward and backward; the flash-CE
+     statistics, forward and backward; the sampler's ablation probe)
      against its plain PyTorch version on the card, at the main paths'
      shapes, in fp32, with kernel, plain and library-call times (CUDA
      events, median of 20) beside the bound computed from the shapes;
@@ -29,7 +30,22 @@ result line:
   8. one training step's loss and gradients at full width, batch 1, card
      (kernels) against CPU (plain versions), from the same seeded params;
   9. steady-state training steps/s and frames/s at batch 2, and the peak
-     device memory (printed, not asserted).
+     device memory (printed, not asserted);
+ 10. the arcface training path through `hfa_gp_tpu_torch.cli.train_arcface.
+     main` at full width (iresnet50, 512-d, batch 256, fp32): 6 steps at
+     1,000,000 classes dense with checkpoints, a resumed run to 8 steps,
+     and 6 steps at 3,000,000 classes with `--sample_rate 0.1`; finite
+     losses of the expected size that do not rise, one forward and one
+     backward flash-CE launch per step, and on the sparse run a peak
+     memory that leaves no room for a table-sized gradient;
+ 11. one arcface step's loss and gradients (iresnet50, 10,000 classes,
+     batch 8), card (kernels) against CPU (plain versions), from the same
+     seeded state and batch;
+ 12. steady-state arcface samples/s and peak device memory at the two
+     configurations of 10 (printed, not asserted);
+ 13. the sampler probe through its entry point, `hfa_gp_tpu_torch.tools.
+     probe_sampler.main`: the full variant equal to the sampler bit for
+     bit, and a time per variant.
 
 The line before the last is a JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -73,6 +89,28 @@ E2E_RTOL = 2e-3
 #   the atomics; loss relative, each gradient relative to its own scale
 STEP_LOSS_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-2
+
+#   flash-CE kernels vs plain: exp(s·cos − s) with s = 64 turns a cosine
+#   error of 1e-7 (one fp32 product of depth 512, summed in another order)
+#   into 6e-6 relative; se_x relative, tgt_raw absolute, the gradients
+#   relative to their scale (d norm_emb is summed with atomics)
+CE_SE_RTOL, CE_TGT_ATOL = 1e-4, 1e-6
+#   card vs CPU, one arcface step (53 conv layers, train-mode BN at batch
+#   8). PReLU's derivative jumps from 0.25 to 1 at 0: an input within
+#   rounding of 0 takes one slope on the card and the other on the CPU, and
+#   that one element moves the gradients of the conv and BN right in front of
+#   it by a few per cent of their largest entry (2 % seen in the third
+#   stage, 1,568 positions a channel; the last stage has 392). So with PReLU
+#   every gradient is held to 1e-2 in the L2 norm and, as a coarse net, to
+#   1e-1 at its worst entry, and the same step with a smooth activation in
+#   PReLU's place to 1e-3 at its worst entry
+ARC_LOSS_RTOL = 1e-4
+ARC_GRAD_L2_RTOL = 1e-2
+ARC_GRAD_RTOL = 1e-1
+ARC_GRAD_SMOOTH_RTOL = 1e-3
+#   the arcface loss may wander from step to step on fresh random batches;
+#   it must not rise above the first step's by more than this factor
+ARC_LOSS_RISE = 1.05
 
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
 # memory rate, and fp32 outside the tensor cores
@@ -319,7 +357,142 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         b * r * (n * 3 * c + (n - 1) * 40)))
     results[-1]["note"] = ("the TPU kernel has no backward: the JAX package "
                            "differentiates renderer.ray_march instead")
+    del colors, dens, depths, cots, got, want
+    results += phase_kernels_flash_ce(dev, g)
+    results.append(phase_kernels_probe(dev))
     return results
+
+
+def ce_inputs(dev, g, b: int, d: int, c: int):
+    """Unit-row embeddings, a PartialFC-sized table (N(0, 0.01²) rows, a few
+    of them near their row's embedding so that some exp terms are not
+    tiny), labels with a few −1."""
+    ne = torch.randn((b, d), generator=g)
+    ne = (ne / ne.norm(dim=1, keepdim=True)).to(dev)
+    w = torch.randn((c, d), generator=torch.Generator(dev).manual_seed(SEED),
+                    device=dev) * 0.01
+    lab = torch.randint(0, c, (b,), generator=g).int()
+    lab[::9] = -1
+    lab = lab.to(dev)
+    near = torch.arange(1, b, 7, device=dev)
+    near = near[lab[near] >= 0]
+    w[lab[near].long()] = 0.02 * ne[near] + 5e-4 * torch.randn(
+        (near.numel(), d), generator=g).to(dev)
+    return ne, w, lab
+
+
+def phase_kernels_flash_ce(dev: torch.device, g) -> list[dict]:
+    """K5 and K6 at the arcface path's shapes: B 256, d 512, fp32, the
+    dense table of 1,000,000 classes and the 300,000 sampled rows of the
+    3,000,000-class table."""
+    from hfa_gp_tpu_torch.core.kernels import flash_ce
+    s, b, d = 64.0, 256, 512
+    entries = {}
+    for c in (300_000, 1_000_000):
+        ne, w, lab = ce_inputs(dev, g, b, d, c)
+        se, tgt = flash_ce.flash_ce_stats(ne, w, lab, s)
+        se_p, tgt_p = flash_ce.flash_ce_stats_plain(ne, w, lab, s)
+        torch.cuda.synchronize()
+        se_rel = ((se - se_p).abs() / se_p.abs().clamp_min(1e-30)).max().item()
+        tgt_err = (tgt - tgt_p).abs().max().item()
+        print(f"[3] flash-CE forward kernel vs plain, C {c}: se_x max rel err "
+              f"{se_rel:.3e} (bound {CE_SE_RTOL:g}), tgt_raw max abs err "
+              f"{tgt_err:.3e} (bound {CE_TGT_ATOL:g}); se_x in "
+              f"[{se_p.min().item():.3e}, {se_p.max().item():.3e}]",
+              flush=True)
+        if not se_rel <= CE_SE_RTOL or not tgt_err <= CE_TGT_ATOL:
+            fail(f"flash-CE forward kernel disagrees with its plain version "
+                 f"at C {c}: se_x {se_rel}, tgt_raw {tgt_err}")
+        if not bool((tgt[lab < 0] == 0).all()):
+            fail("flash-CE forward: tgt_raw is not 0 where the label is < 0")
+        # cotangents of the size the loss gives them: d log(se) and d tgt
+        ct_se = (torch.randn((b,), generator=g).to(dev) / se_p).contiguous()
+        ct_tgt = torch.randn((b,), generator=g).to(dev)
+        got = flash_ce.flash_ce_stats_backward(ne, w, lab, s, None, ct_se,
+                                               ct_tgt)
+        want = flash_ce.flash_ce_stats_backward_plain(ne, w, lab, s, None,
+                                                      ct_se, ct_tgt)
+        torch.cuda.synchronize()
+        errs = [rel_err(x, y) for x, y in zip(got, want)]
+        rel = max(r for _, r in errs)
+        print(f"[3] flash-CE backward kernel vs plain, C {c}: d norm_emb "
+              f"{errs[0][1]:.3e}, d w {errs[1][1]:.3e} of the gradient's "
+              f"scale (bound {BWD_RTOL:g})", flush=True)
+        if not rel <= BWD_RTOL:
+            fail(f"flash-CE backward kernel disagrees with its plain version "
+                 f"at C {c}: {rel} of the gradient's scale")
+        if c != 1_000_000:
+            del ne, w, lab, got, want
+            continue
+        ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s))
+        plain_ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_plain(
+            ne, w, lab, s))
+        # no single PyTorch call computes the statistics; for the record,
+        # the bare (B, d) x (d, C) product through torch.matmul
+        matmul_ms = cuda_time_ms(lambda: torch.matmul(ne, w.T))
+        print(f"    torch.matmul of the bare ({b}, {d}) x ({d}, {c}) product: "
+              f"{matmul_ms:.4f} ms", flush=True)
+        # the product, the row norms, and per cosine: scale, clip (2), the
+        # exp's argument (2), the exp, the sum
+        flops = 2.0 * b * d * c + 2.0 * c * d + 7.0 * b * c
+        entries["fwd"] = kernel_entry(
+            "flash_ce_fwd", "hfa_gp_tpu_torch/csrc/flash_ce.cu",
+            "hfa_gp_tpu/parallel/pallas_ce.py:78", max(tgt_err, 0.0), ms,
+            plain_ms, None, nbytes(ne, w, lab, se, tgt), flops)
+        entries["fwd"]["max_rel_err_se_x"] = se_rel
+        entries["fwd"]["matmul_ms"] = matmul_ms
+        ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_backward(
+            ne, w, lab, s, None, ct_se, ct_tgt))
+        plain_ms = cuda_time_ms(
+            lambda: flash_ce.flash_ce_stats_backward_plain(
+                ne, w, lab, s, None, ct_se, ct_tgt))
+        # three products (the recomputed cosines, d w, d norm_emb), the
+        # norms, d w's second term (3 per element), ~14 per cosine
+        flops = 6.0 * b * d * c + 5.0 * c * d + 14.0 * b * c
+        entries["bwd"] = kernel_entry(
+            "flash_ce_bwd", "hfa_gp_tpu_torch/csrc/flash_ce_bwd.cu",
+            "hfa_gp_tpu/parallel/pallas_ce.py:108", max(e for e, _ in errs),
+            ms, plain_ms, None, nbytes(ne, w, lab, ct_se, ct_tgt, *got),
+            flops)
+        entries["bwd"]["max_err_over_scale"] = rel
+        del ne, w, lab, got, want
+    torch.cuda.empty_cache()
+    return [entries["fwd"], entries["bwd"]]
+
+
+def phase_kernels_probe(dev: torch.device) -> dict:
+    """The sampler's ablation probe with every stage on, at the probe's
+    shapes (batch 4, 128² x 48 points): equal to the sampler bit for bit."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    from hfa_gp_tpu_torch.tools import probe_sampler
+    planes, pts = probe_sampler.probe_inputs(dev, SEED)
+    got = probe_sampler.probe(planes, pts, 1.0)
+    same = triplane.sample_mean(planes, pts, 1.0)
+    want = triplane.sample_mean_plain(planes, pts, 1.0)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    print(f"[3] sampler probe, every stage on: equal to the sampler kernel "
+          f"bit for bit: {torch.equal(got, same)}; vs plain max abs err "
+          f"{err:.3e} (bound {SAMPLER_ATOL:g}; planes {tuple(planes.shape)}, "
+          f"points {tuple(pts.shape)})", flush=True)
+    if not torch.equal(got, same):
+        fail("the probe's full variant differs from the sampler kernel")
+    if not err <= SAMPLER_ATOL:
+        fail(f"the probe disagrees with the sampler's plain version: {err}")
+    ms = cuda_time_ms(lambda: probe_sampler.probe(planes, pts, 1.0))
+    plain_ms = cuda_time_ms(lambda: triplane.sample_mean_plain(planes, pts,
+                                                               1.0))
+    library_ms = cuda_time_ms(lambda: triplane.sample_from_planes(
+        planes, pts, 1.0).mean(1))
+    c = planes.shape[-1]
+    corners = in_bounds_corners(pts, 256, 256)
+    n_points = pts.shape[0] * pts.shape[1]
+    entry = kernel_entry(
+        "triplane_probe", "hfa_gp_tpu_torch/csrc/triplane_probe.cu",
+        "tools/probe_sampler.py:33", err, ms, plain_ms, library_ms,
+        nbytes(planes, pts, got), corners * 2 * c + n_points * (c + 60))
+    entry["also_replaces"] = "tools/probe_sampler2.py:32"
+    return entry
 
 
 def write_dataset(root: str, n: int = 4, size: int = 256,
@@ -346,18 +519,30 @@ def write_dataset(root: str, n: int = 4, size: int = 256,
         json.dump({"labels": labels}, f)
 
 
+NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
+               "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
+               "flash_ce_bwd": 0, "triplane_probe": 0}
+
+
 def reset_launches() -> None:
-    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    from hfa_gp_tpu_torch.core.kernels import flash_ce, raymarch, triplane
+    from hfa_gp_tpu_torch.tools import probe_sampler
     triplane.LAUNCHES = triplane.LAUNCHES_BWD = 0
     raymarch.LAUNCHES = raymarch.LAUNCHES_BWD = 0
+    flash_ce.LAUNCHES = flash_ce.LAUNCHES_BWD = 0
+    probe_sampler.LAUNCHES = 0
 
 
 def read_launches() -> dict[str, int]:
-    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    from hfa_gp_tpu_torch.core.kernels import flash_ce, raymarch, triplane
+    from hfa_gp_tpu_torch.tools import probe_sampler
     return {"triplane_sampler": triplane.LAUNCHES,
             "triplane_sampler_bwd": triplane.LAUNCHES_BWD,
             "ray_marcher": raymarch.LAUNCHES,
-            "ray_marcher_bwd": raymarch.LAUNCHES_BWD}
+            "ray_marcher_bwd": raymarch.LAUNCHES_BWD,
+            "flash_ce_fwd": flash_ce.LAUNCHES,
+            "flash_ce_bwd": flash_ce.LAUNCHES_BWD,
+            "triplane_probe": probe_sampler.LAUNCHES}
 
 
 def phase_main_path(tmp: str) -> dict[str, int]:
@@ -405,9 +590,8 @@ def phase_main_path(tmp: str) -> dict[str, int]:
         fail("no video written")
     if len(finite) != n_batches or not all(finite):
         fail(f"non-finite frames: {finite}")
-    expected = {"triplane_sampler": 2 * n_batches,
-                "ray_marcher": 2 * n_batches,
-                "triplane_sampler_bwd": 0, "ray_marcher_bwd": 0}
+    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
+                "ray_marcher": 2 * n_batches}
     if launches != expected:
         fail(f"reenactment launched {launches}, expected {expected}")
     return launches
@@ -523,8 +707,9 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     # adds forward launches only: 2 + 2 for the test frame, and 2 + 2 for
     # each batch of 8 basis directions.
     n_fwd = 2 * steps + 2 + 2 * -(-n_bases // 8)
-    expected = {"triplane_sampler": n_fwd, "ray_marcher": n_fwd,
-                "triplane_sampler_bwd": 2 * steps, "ray_marcher_bwd": steps}
+    expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
+                "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
+                "ray_marcher_bwd": steps}
     if launches != expected:
         fail(f"training launched {launches}, expected {expected}")
 
@@ -559,7 +744,7 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     if args.start_iter != steps or not np.isfinite(
             [last["l2_loss"], last["lpips_loss"]]).all():
         fail(f"resume started at {args.start_iter}, last record {last}")
-    if resumed != {"triplane_sampler": 2, "ray_marcher": 2,
+    if resumed != {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
                    "triplane_sampler_bwd": 2, "ray_marcher_bwd": 1}:
         fail(f"one resumed step launched {resumed}")
 
@@ -655,6 +840,294 @@ def phase_train_throughput() -> None:
           f"{peak / 2**30:.3f} GiB", flush=True)
 
 
+ARC_NET, ARC_BATCH, ARC_DIM = "iresnet50", 256, 512
+ARC_CONFIGS = {"dense": ["--num_classes", "1000000"],
+               "sparse": ["--num_classes", "3000000", "--sample_rate", "0.1"]}
+GIB = 2.0 ** 30
+
+
+def arc_args(*extra):
+    from hfa_gp_tpu_torch.cli import train_arcface
+    return train_arcface.build_argparser().parse_args([
+        "--network", ARC_NET, "--batch_size", str(ARC_BATCH), "--fp32",
+        "--device", "cuda", *extra])
+
+
+def run_arcface_cli(args) -> tuple[list[float], dict[str, int], float, float]:
+    """`train_arcface.main(args)` with the step function wrapped so that
+    every step's loss is kept: (losses, launches, seconds, peak bytes)."""
+    from hfa_gp_tpu_torch.cli import train_arcface
+    losses = []
+    make = train_arcface.arc.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def wrapped(*sa, **skw):
+            out = step(*sa, **skw)
+            losses.append(out["loss"])
+            return out
+        return wrapped
+
+    train_arcface.arc.make_train_step = recording
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        train_arcface.main(args)
+    finally:
+        train_arcface.arc.make_train_step = make
+    launches = read_launches()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ([float(x) for x in losses], launches, seconds,
+            torch.cuda.max_memory_allocated())
+
+
+def backbone_peak_bytes() -> int:
+    """Peak device memory of one forward and backward of the backbone alone
+    at the arcface batch (activations, parameters and their gradients)."""
+    from hfa_gp_tpu_torch.models.arcface import registry
+    params, stats = registry.init_backbone(
+        torch.Generator().manual_seed(SEED), ARC_NET, ARC_DIM, "cuda")
+    params.requires_grad_(True)
+    x = torch.randn((ARC_BATCH, 112, 112, 3), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    emb, _ = registry.backbone_apply(ARC_NET, params, stats, x, train=True)
+    emb.square().mean().backward()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def check_arcface_losses(what: str, losses, n_classes: int, steps: int):
+    """Finite, of the size a random init gives (between ln C and ln C + 2s:
+    the log of C terms near 1, less a target logit near s·cos(π/2 + m)),
+    and not rising over the run."""
+    lo, hi = np.log(n_classes), np.log(n_classes) + 2 * 64.0
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{what}: expected {steps} finite losses, got {losses}")
+    if not lo < losses[0] < hi:
+        fail(f"{what}: first loss {losses[0]} outside ({lo:.2f}, {hi:.2f})")
+    if max(losses[1:]) > ARC_LOSS_RISE * losses[0]:
+        fail(f"{what}: the loss rose: {losses}")
+
+
+def phase_arcface_path(tmp: str) -> dict[str, int]:
+    """[10] train_arcface.main: dense with checkpoints, resumed, sparse.
+    Returns the dense run's launch counts."""
+    from hfa_gp_tpu_torch.train import checkpoint as ckpt
+    out = os.path.join(tmp, "arcface")
+    steps = 6
+    # -- dense, 1,000,000 classes
+    losses, launches, seconds, peak = run_arcface_cli(arc_args(
+        *ARC_CONFIGS["dense"], "--num_steps", str(steps), "--log_freq", "2",
+        "--output", out, "--save_freq", "3"))
+    cdir = os.path.join(out, "checkpoint")
+    ckpts = sorted(os.listdir(cdir))
+    print(f"[10] arcface path, {ARC_NET}, 1,000,000 classes dense, batch "
+          f"{ARC_BATCH}: {steps} steps in {seconds:.2f} s (init, first-use "
+          f"costs and checkpoints included), losses "
+          f"{[round(x, 4) for x in losses]}, checkpoints {ckpts}, peak "
+          f"{peak / GIB:.3f} GiB, launches {launches}", flush=True)
+    check_arcface_losses("dense run", losses, 1_000_000, steps)
+    if ckpts != ["000003", "000006"]:
+        fail(f"checkpoints {ckpts}")
+    expected = {**NO_LAUNCHES, "flash_ce_fwd": steps, "flash_ce_bwd": steps}
+    if launches != expected:
+        fail(f"the dense run launched {launches}, expected {expected}")
+
+    # -- resumed to 8 steps
+    r_losses, resumed, seconds, _ = run_arcface_cli(arc_args(
+        *ARC_CONFIGS["dense"], "--num_steps", "8", "--output", out,
+        "--resume"))
+    last = ckpt.latest_step(cdir)
+    saved = torch.load(os.path.join(cdir, f"{last:06d}"), weights_only=True,
+                       map_location="cpu")
+    print(f"     resumed from step {steps} to 8 in {seconds:.2f} s: losses "
+          f"{[round(x, 4) for x in r_losses]}, latest checkpoint {last:06d} "
+          f"holds step {saved['step']}, launches {resumed}", flush=True)
+    if last != 8 or saved["step"] != 8 or len(r_losses) != 2 \
+            or not np.isfinite(r_losses).all():
+        fail(f"resume: latest {last}, step {saved['step']}, {r_losses}")
+    if resumed != {**NO_LAUNCHES, "flash_ce_fwd": 2, "flash_ce_bwd": 2}:
+        fail(f"two resumed steps launched {resumed}")
+    del saved
+
+    # -- sparse, 3,000,000 classes at sample_rate 0.1
+    bb_peak = backbone_peak_bytes()
+    s_losses, s_launches, seconds, peak = run_arcface_cli(arc_args(
+        *ARC_CONFIGS["sparse"], "--num_steps", str(steps)))
+    table = 3_000_000 * ARC_DIM * 4
+    # table + momentum, the backbone's own peak, and 3 GiB for the sampled
+    # rows' working set (300,000 rows are 0.57 GiB a copy); a table-sized
+    # gradient would be 5.72 GiB more
+    limit = 2 * table + bb_peak + 3 * GIB
+    print(f"     3,000,000 classes at sample_rate 0.1: {steps} steps in "
+          f"{seconds:.2f} s, losses {[round(x, 4) for x in s_losses]}, "
+          f"launches {s_launches}; peak {peak / GIB:.3f} GiB against table + "
+          f"momentum {2 * table / GIB:.3f} + backbone alone "
+          f"{bb_peak / GIB:.3f} + 3 = {limit / GIB:.3f} GiB", flush=True)
+    check_arcface_losses("sparse run", s_losses, 3_000_000, steps)
+    if s_launches != expected:
+        fail(f"the sparse run launched {s_launches}, expected {expected}")
+    if not peak < limit:
+        fail(f"the sparse run's peak {peak / GIB:.3f} GiB leaves room for a "
+             f"table-sized gradient (limit {limit / GIB:.3f} GiB)")
+    return launches
+
+
+def phase_arcface_card_vs_cpu() -> None:
+    """[11] loss and every gradient of one arcface step, card vs CPU; then
+    the same with a smooth activation in PReLU's place."""
+    from hfa_gp_tpu_torch.models.arcface import iresnet, registry
+    from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
+    from hfa_gp_tpu_torch.train import arcface as arc
+    classes, batch = 10_000, 8
+    pfc = PartialFC(classes, ARC_DIM)
+    tx, fc_tx = arc.make_optimizers(4)
+    g = torch.Generator().manual_seed(SEED + 3)
+    images = torch.randn((batch, 112, 112, 3), generator=g)
+    labels = torch.randint(0, classes, (batch,), generator=g)
+    states = {"cpu": arc.init_state(torch.Generator().manual_seed(SEED), pfc,
+                                    tx, fc_tx, ARC_NET, "cpu")}
+    # the same backbone (drawn on the CPU) and the CPU's table
+    states["cuda"] = arc.init_state(torch.Generator().manual_seed(SEED), pfc,
+                                    tx, fc_tx, ARC_NET, "cuda")
+    states["cuda"].fc_weight.copy_(states["cpu"].fc_weight)
+
+    def one_step(dev: str):
+        state = states[dev]
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad(set_to_none=True)
+        w = state.fc_weight.detach().requires_grad_(True)
+        emb, _ = registry.backbone_apply(ARC_NET, state.backbone,
+                                         state.batch_stats, images.to(dev),
+                                         train=True)
+        loss = pfc.loss(w, emb, labels.to(dev))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in
+                 state.backbone.named_parameters() if p.grad is not None}
+        grads["fc_weight"] = w.grad.cpu()
+        return loss.item(), grads, time.perf_counter() - t0
+
+    def smooth(p, x):
+        # PReLU's slopes far from 0, no kink
+        return 0.625 * x + 0.375 * torch.sqrt(x * x + 1.0)
+
+    prelu = iresnet._prelu
+    for act in ("PReLU", "a smooth activation in its place"):
+        iresnet._prelu = prelu if act == "PReLU" else smooth
+        try:
+            (l_gpu, g_gpu, t_gpu), (l_cpu, g_cpu, t_cpu) = (one_step("cuda"),
+                                                            one_step("cpu"))
+        finally:
+            iresnet._prelu = prelu
+        # A per-channel constant in front of a train-mode BN changes
+        # nothing: the FC bias and the last BN's (before the BN1d head) and
+        # the bias of every block's last BN and of its shortcut's BN (the
+        # sum runs down the identity path to the next BN) have gradient
+        # zero, and what either device computes for them is rounding noise.
+        # They are held to be tiny, not to agree.
+        null = [n for n in g_cpu if n in ("fc.bias", "bn2.bias")
+                or n.endswith(("bn3.bias", "down_bn.bias"))]
+        top = max(x.abs().max().item() for x in g_cpu.values())
+        noise = max(max(g_gpu[n].abs().max().item(),
+                        g_cpu[n].abs().max().item()) for n in null)
+        held = [n for n in g_cpu if n not in null]
+        rels = {n: rel_err(g_gpu[n], g_cpu[n])[1] for n in held}
+        l2 = {n: ((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm()).item()
+              for n in held}
+        worst = sorted(rels, key=rels.get)[-3:][::-1]
+        worst_l2 = max(l2, key=l2.get)
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        bound = ARC_GRAD_RTOL if act == "PReLU" else ARC_GRAD_SMOOTH_RTOL
+        print(f"[11] one arcface step, {ARC_NET}, {classes} classes, batch "
+              f"{batch}, card vs CPU, with {act}: loss {l_gpu:.6f} vs "
+              f"{l_cpu:.6f} (rel {loss_rel:.3e}, bound {ARC_LOSS_RTOL:g}); "
+              f"{len(held)} gradients, worst max abs diff over the "
+              f"gradient's scale "
+              f"{[(n, float(f'{rels[n]:.3e}')) for n in worst]} (bound "
+              f"{bound:g}), worst relative L2 error {worst_l2} "
+              f"{l2[worst_l2]:.3e} (bound {ARC_GRAD_L2_RTOL:g}); {len(null)} "
+              f"gradients that are zero by construction: max abs "
+              f"{noise:.3e} on either device against the largest "
+              f"gradient's {top:.3e} (bound 1e-5 of it); card {t_gpu:.2f} s, "
+              f"CPU {t_cpu:.2f} s", flush=True)
+        if not all(torch.isfinite(x).all() for x in g_gpu.values()):
+            fail("non-finite arcface gradient on the card")
+        if sorted(g_gpu) != sorted(g_cpu) or len(null) != 2 + 24 + 4 \
+                or any(g_cpu[n].abs().max() == 0 for n in held):
+            fail(f"{len(null)} gradients taken as zero by construction; or "
+                 "card and CPU differ in which gradients they give")
+        if not noise <= 1e-5 * top:
+            fail(f"a gradient that is zero by construction reads {noise}")
+        if not loss_rel <= ARC_LOSS_RTOL:
+            fail(f"card arcface loss {l_gpu} differs from the CPU's {l_cpu}")
+        if not rels[worst[0]] <= bound:
+            fail(f"card gradient of {worst[0]} differs from the CPU's by "
+                 f"{rels[worst[0]]} of its scale (with {act})")
+        if not l2[worst_l2] <= ARC_GRAD_L2_RTOL:
+            fail(f"card gradient of {worst_l2} differs from the CPU's by "
+                 f"{l2[worst_l2]} in the L2 norm (with {act})")
+
+
+def phase_arcface_throughput() -> None:
+    """[12] steady-state samples/s (host clock around synchronised steps)
+    and peak device memory at the two configurations of [10]."""
+    from hfa_gp_tpu_torch.cli import train_arcface
+    from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
+    from hfa_gp_tpu_torch.train import arcface as arc
+    iters, warmup = 5, 2
+    for name, flags in ARC_CONFIGS.items():
+        args = arc_args(*flags)
+        pfc = PartialFC(args.num_classes, ARC_DIM,
+                        sample_rate=args.sample_rate)
+        tx, fc_tx = arc.make_optimizers(warmup + iters, lr=args.lr,
+                                        warmup_steps=args.warmup_steps)
+        step = arc.make_train_step(pfc, tx, fc_tx, ARC_NET)
+        torch.cuda.empty_cache()
+        state = arc.init_state(torch.Generator().manual_seed(SEED), pfc, tx,
+                               fc_tx, ARC_NET, "cuda")
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        times = []
+        for i in range(warmup + iters):
+            imgs, labs = train_arcface.synth_batch(
+                ARC_BATCH, args.num_classes, gen, torch.device("cuda"))
+            if i == warmup:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, imgs, labs, gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times[warmup:])) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[12] arcface training, {name}: {args.num_classes} classes, "
+              f"sample_rate {args.sample_rate}, batch {ARC_BATCH}: {ms:.2f} "
+              f"ms per step (median of {iters}), "
+              f"{ARC_BATCH * 1e3 / ms:.3f} samples/s, peak device memory "
+              f"{peak / GIB:.3f} GiB", flush=True)
+        del state, step
+
+
+def phase_probe_path() -> dict[str, int]:
+    """[13] the sampler probe through its entry point."""
+    from hfa_gp_tpu_torch.tools import probe_sampler
+    reset_launches()
+    times = probe_sampler.main(["--iters", "10"])
+    launches = read_launches()
+    print(f"[13] sampler probe: {len(times) - 1} variants timed, launches "
+          f"{launches}", flush=True)
+    if not all(np.isfinite(t) and t > 0 for t in times.values()):
+        fail(f"probe times {times}")
+    if launches["triplane_probe"] < len(probe_sampler.VARIANTS):
+        fail(f"the probe launched {launches}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -677,14 +1150,29 @@ def main() -> None:
         train_launches = phase_train_path(tmp)
     phase_step_card_vs_cpu()
     phase_train_throughput()
+    with tempfile.TemporaryDirectory() as tmp:
+        arcface_launches = phase_arcface_path(tmp)
+    phase_arcface_card_vs_cpu()
+    phase_arcface_throughput()
+    probe_launches = phase_probe_path()
 
-    # launches: of the training path's first run (4 steps and one display);
-    # the reenactment path's count beside it
+    # launches, each from the run of the path that owns the kernel: the
+    # RGB training path's first run (4 steps and one display; the
+    # reenactment path's count beside it), the arcface path's dense run
+    # (6 steps), the probe's entry point
     for k in kernels:
-        k["launches"] = train_launches[k["name"]]
-        k["launches_reenact"] = reenact_launches[k["name"]]
+        if k["name"].startswith("flash_ce"):
+            k["launches"] = arcface_launches[k["name"]]
+        elif k["name"] == "triplane_probe":
+            k["launches"] = probe_launches[k["name"]]
+        else:
+            k["launches"] = train_launches[k["name"]]
+            k["launches_reenact"] = reenact_launches[k["name"]]
+        if not k["launches"] > 0:
+            fail(f"{k['name']} was not launched on its main path")
     foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "hfa_gp_tpu"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
+                                            "hfa_gp_tpu"))
     if foreign:
         fail(f"imported JAX or the JAX package: {foreign[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -112,6 +112,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """argtypes/restype of every entry point: pointers and the stream as
     c_void_p (a bare int would be cut to 32 bits), sizes as c_int."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    i64 = ctypes.c_int64
     lib.hfa_triplane_mean.argtypes = [p, p, p, i, i, i, i, i, f, p]
     lib.hfa_triplane_mean.restype = ctypes.c_int
     lib.hfa_ray_march.argtypes = [p, p, p, p, p, p, i, i, i, p]
@@ -120,6 +121,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_triplane_mean_bwd.restype = ctypes.c_int
     lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march_bwd.restype = ctypes.c_int
+    lib.hfa_flash_ce_fwd.argtypes = [p, p, p, p, p, p, i, i, i64, f, i, p]
+    lib.hfa_flash_ce_fwd.restype = ctypes.c_int
+    lib.hfa_flash_ce_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i64, f, i, p]
+    lib.hfa_flash_ce_bwd.restype = ctypes.c_int
+    lib.hfa_triplane_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
+    lib.hfa_triplane_probe.restype = ctypes.c_int
     return lib
 
 

@@ -18,7 +18,6 @@ Needs a CUDA card; the kernels are built at first use.
 from __future__ import annotations
 
 import argparse
-import subprocess
 
 import numpy as np
 import torch
@@ -30,14 +29,15 @@ from ..models.avatar import heads
 from ..train import rgb
 from ..train.state import apply_generator_freeze, init_state
 from ..utils.convert import ParamTree
+from .measure import card_line, events_ms
 
 SEED = 0
 OUR_KERNELS = ("triplane_mean_kernel", "triplane_mean_bwd_kernel",
                "ray_march_kernel", "ray_march_bwd_kernel")
 
-# kernel-name substrings → group, first match wins
+# kernel-name substrings → group, first match wins (after the hand-written
+# kernels, which the caller names)
 GROUPS = (
-    ("hand-written kernels", OUR_KERNELS),
     ("convolution (cuDNN, depthwise, FFT)",
      ("cudnn", "implicit_gemm", "dgrad", "wgrad", "fft", "conv", "winograd",
       # the complex products of cuDNN's FFT algorithms
@@ -48,21 +48,11 @@ GROUPS = (
 )
 
 
-def _group(key: str) -> str:
-    for name, needles in GROUPS:
+def _group(key: str, ours=OUR_KERNELS) -> str:
+    for name, needles in (("hand-written kernels", ours), *GROUPS):
         if any(n in key for n in needles):
             return name
     return "elementwise, reductions, other"
-
-
-def _events_ms(fn) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -76,10 +66,7 @@ def main(args) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA card")
     common.fp32_backends()
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     dev = "cuda"
     cfg = heads.AvatarConfig()
     g = torch.Generator().manual_seed(SEED)
@@ -102,21 +89,21 @@ def main(args) -> None:
     for _ in range(args.steps):
         state.optimizer.zero_grad(set_to_none=True)
         out = {}
-        t_fwd = _events_ms(lambda: out.update(loss=rgb.loss_fn(
+        t_fwd = events_ms(lambda: out.update(loss=rgb.loss_fn(
             state.params, lp, cfg, image, label)[0]))
-        t_bwd = _events_ms(lambda: out["loss"].backward())
+        t_bwd = events_ms(lambda: out["loss"].backward())
 
         def optimizer():
             apply_generator_freeze(state.params, state.step, 0)
             state.optimizer.step()
 
-        t_opt = _events_ms(optimizer)
+        t_opt = events_ms(optimizer)
         with torch.no_grad():
-            t_enc = _events_ms(lambda: out.update(
+            t_enc = events_ms(lambda: out.update(
                 w=heads.rgb_get_weights(state.params, cfg, image)))
-            t_sub = _events_ms(lambda: out.update(
+            t_sub = events_ms(lambda: out.update(
                 lat=heads.get_latent(state.params, out["w"], cfg)))
-            t_syn = _events_ms(lambda: out.update(img=heads.get_image(
+            t_syn = events_ms(lambda: out.update(img=heads.get_image(
                 state.params, cfg, out["lat"], label)))
 
             def loss_terms():
@@ -124,7 +111,7 @@ def main(args) -> None:
                 return (image - gen).square().mean() \
                     + lpips_mod.lpips_distance(lp, image, gen).mean()
 
-            t_loss = _events_ms(loss_terms)
+            t_loss = events_ms(loss_terms)
         for k, v in (("forward", t_fwd), ("backward", t_bwd),
                      ("optimizer", t_opt), ("fwd: encoder", t_enc),
                      ("fwd: subspace (QR)", t_sub),
@@ -142,7 +129,7 @@ def main(args) -> None:
 
     # -- whole steps: host clock, peak memory
     torch.cuda.reset_peak_memory_stats()
-    ms = [_events_ms(step) for _ in range(args.steps)]
+    ms = [events_ms(step) for _ in range(args.steps)]
     print(f"whole step: {float(np.median(ms)):.3f} ms (median of "
           f"{args.steps}), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -154,7 +141,13 @@ def main(args) -> None:
         for _ in range(args.steps):
             step()
         torch.cuda.synchronize()
+    device_report(prof, args.steps, OUR_KERNELS)
 
+
+def device_report(prof, steps: int, ours) -> None:
+    """From a `torch.profiler` run over `steps` whole steps: device time by
+    kernel (top 25) and by group, the share of the hand-written kernels
+    named in `ours`, and the share of the window the device was busy."""
     def on_device(e) -> bool:
         """Kernels and copies only: an operator's own entry, or an
         annotation's range, repeats the time of the kernels under it."""
@@ -169,18 +162,18 @@ def main(args) -> None:
     if total == 0:
         print("torch.profiler recorded no device time")
         return
-    print(f"device time over {args.steps} profiled steps: "
+    print(f"device time over {steps} profiled steps: "
           f"{total / 1e3:.3f} ms (by kernel name)")
     for us, key, n in kernels[:25]:
         print(f"  {100 * us / total:5.2f} %  {us / 1e3:9.3f} ms  x{n:<5d} "
               f"{key[:90]}")
     groups: dict[str, float] = {}
     for us, key, _ in kernels:
-        groups[_group(key)] = groups.get(_group(key), 0.0) + us
+        groups[_group(key, ours)] = groups.get(_group(key, ours), 0.0) + us
     print("by group (kernel-name substrings, see GROUPS):")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {100 * us / total:5.2f} %  {us / 1e3:9.3f} ms  {name}")
-    for name in OUR_KERNELS:
+    for name in ours:
         hit = [(us, n) for us, key, n in kernels if name in key]
         us, n = (sum(h[0] for h in hit), sum(h[1] for h in hit))
         print(f"  ours: {name:26s} {100 * us / total:5.2f} %  "

@@ -1,10 +1,14 @@
 """Checkpoint and resume (port of hfa_gp_tpu/train/checkpoint.py, Orbax
 there, `torch.save` here).
 
-A checkpoint is one file `{checkpoint_path}/{step:06d}` holding
-{"params": state_dict, "optimizer": state_dict, "step": int}. The file is
-named after the loop index the trainer passes; the saved `step` is the
-number of updates done, and resume takes it from the file, not the name.
+A checkpoint is one file `{checkpoint_path}/{step:06d}`. For the avatar
+trainers' `TrainState` it holds {"params": state_dict, "optimizer":
+state_dict, "step": int}; for the arcface trainer's `ArcFaceState` the
+whole state: {"backbone", "batch_stats", "fc_weight", "optimizer",
+"fc_opt_state", "step"}. The file is named after the loop index the
+trainer passes (the state's step when it passes none); the saved `step`
+is the number of updates done, and resume takes it from the file, not the
+name.
 """
 
 from __future__ import annotations
@@ -16,18 +20,30 @@ from typing import Any
 import torch
 
 from ..utils.convert import ParamTree
+from .arcface import ArcFaceState
 from .state import TrainState
 
 
-def save(state: TrainState, checkpoint_path: str,
+def _payload(state: TrainState | ArcFaceState) -> dict[str, Any]:
+    if isinstance(state, ArcFaceState):
+        return {"backbone": state.backbone.state_dict(),
+                "batch_stats": state.batch_stats.state_dict(),
+                "fc_weight": state.fc_weight,
+                "optimizer": state.optimizer.state_dict(),
+                "fc_opt_state": state.fc_opt_state,
+                "step": state.step}
+    return {"params": state.params.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step}
+
+
+def save(state: TrainState | ArcFaceState, checkpoint_path: str,
          step: int | None = None) -> str:
     step = state.step if step is None else int(step)
     os.makedirs(checkpoint_path, exist_ok=True)
     path = os.path.abspath(os.path.join(checkpoint_path, f"{step:06d}"))
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"params": state.params.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, tmp)
+    torch.save(_payload(state), tmp)
     os.replace(tmp, path)                # never a half-written checkpoint
     return path
 
@@ -50,10 +66,23 @@ def _load(path: str) -> dict[str, Any]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def restore(path: str, state: TrainState) -> TrainState:
+def restore(path: str, state: TrainState | ArcFaceState
+            ) -> TrainState | ArcFaceState:
     """Load the checkpoint file `path` into `state` (params, optimizer
-    moments and step counts, step) in place and return it."""
+    moments and step counts, step; for an `ArcFaceState` also the running
+    moments, the table and the head's buffers) in place, onto the devices
+    `state` lives on, and return it."""
     ckpt = _load(path)
+    if isinstance(state, ArcFaceState):
+        state.backbone.load_state_dict(ckpt["backbone"])
+        state.batch_stats.load_state_dict(ckpt["batch_stats"])
+        with torch.no_grad():
+            state.fc_weight.copy_(ckpt["fc_weight"])
+            for k, v in state.fc_opt_state.items():
+                v.copy_(ckpt["fc_opt_state"][k])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step = int(ckpt["step"])
+        return state
     state.params.load_state_dict(ckpt["params"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])

@@ -244,8 +244,14 @@ def test_port_imports_no_jax():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
+        "for n in ('core.kernels.flash_ce', 'parallel.partial_fc', "
+        "'models.arcface.iresnet', 'models.arcface.registry', "
+        "'models.arcface.convert', 'train.arcface', 'cli.train_arcface', "
+        "'utils.observability', 'tools.probe_sampler', "
+        "'tools.profile_arcface'):\n"
+        "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'hfa_gp_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = dict(os.environ)
