@@ -11,7 +11,12 @@ result line:
      statistics, forward and backward; the sampler's ablation probe)
      against its plain PyTorch version on the card, at the main paths'
      shapes, in fp32, with kernel, plain and library-call times (CUDA
-     events, median of 20) beside the bound computed from the shapes;
+     events, median of 20) beside the bound computed from the shapes; the
+     sampler also at the reenactment path's batch 8, at channel counts
+     that take its general paths and on planes with non-finite edges; the
+     flash-CE kernels also at a batch above one group of rows with ragged
+     class and depth counts, d w bit for bit across two launches, and the
+     backward's ablation (a time per variant);
   4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
      dataset: 4 PNGs of 512², a video, finite frames, and each forward
@@ -47,7 +52,9 @@ result line:
      probe_sampler.main`: the full variant equal to the sampler bit for
      bit, and a time per variant.
 
-The line before the last is a JSON summary of the kernels; the last line
+Before the summary it prints, for each kernel, launches x (ms - bound) per
+reenactment batch, RGB step and arcface step. The line before the last is a
+JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, with no result line, when CUDA is unavailable or when
 it is run outside a checkout. It imports nothing of JAX or of the JAX
@@ -95,6 +102,10 @@ STEP_GRAD_RTOL = 1e-2
 #   into 6e-6 relative; se_x relative, tgt_raw absolute, the gradients
 #   relative to their scale (d norm_emb is summed with atomics)
 CE_SE_RTOL, CE_TGT_ATOL = 1e-4, 1e-6
+#   with bf16 operands the kernel rounds draw to bfloat16 (2^-9 relative)
+#   before the gradient products, the plain version's autograd does not:
+#   the bound of the card-only test
+CE_BF16_BWD_RTOL = 2e-2
 #   card vs CPU, one arcface step (53 conv layers, train-mode BN at batch
 #   8). PReLU's derivative jumps from 0.25 to 1 at 0: an input within
 #   rounding of 0 takes one slope on the card and the other on the CPU, and
@@ -176,7 +187,9 @@ def phase_build() -> None:
     build.library()
     log = build.BUILD_LOG
     print(f"[2] built {log['path']} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {log.get('seconds', 0.0):.2f} s)", flush=True)
+          f"(nvcc {log.get('seconds', 0.0):.2f} s; by source "
+          f"{ {k: round(v, 1) for k, v in log.get('each', {}).items()} })",
+          flush=True)
     for line in log.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"    {line.strip()}", flush=True)
@@ -208,6 +221,71 @@ def in_bounds_corners(pts: torch.Tensor, h: int, w: int) -> int:
     nx = ((fx >= 0) & (fx < w)).long() + ((fx + 1 >= 0) & (fx + 1 < w)).long()
     ny = ((fy >= 0) & (fy < h)).long() + ((fy + 1 >= 0) & (fy + 1 < h)).long()
     return int((nx * ny).sum())
+
+
+def phase_sampler_general_paths(dev: torch.device, g) -> None:
+    """The sampler at channel counts other than 32 (16-byte lanes at another
+    lane count, and one float a lane), on non-square planes, at off-plane
+    points, and beside texels that are not finite."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    worst = 0.0
+    for b, m, h, w, c in ((2, 40000, 64, 64, 8), (1, 40000, 32, 48, 48),
+                          (1, 30000, 32, 32, 30), (3, 7777, 16, 16, 128)):
+        planes = torch.randn((b, 3, h, w, c), generator=g).to(dev)
+        for spread in (1.0, 3.0):
+            pts = ((torch.rand((b, m, 3), generator=g) - 0.5) * spread).to(dev)
+            got = triplane.sample_mean(planes, pts, 1.0)
+            want = triplane.sample_mean_plain(planes, pts, 1.0)
+            worst = max(worst, (got - want).abs().max().item())
+    # NaN in every plane's last column and row: a point just outside the
+    # first column or row has out-of-plane corners whose addresses fall on
+    # those texels; they must contribute exactly 0
+    planes = torch.randn((2, 3, 32, 32, 32), generator=g)
+    planes[:, :, -1] = float("nan")
+    planes[:, :, :, -1] = float("nan")
+    planes = planes.to(dev)
+    pts = (-0.5 + (torch.rand((2, 4096, 3), generator=g) - 0.5) / 32).to(dev)
+    got = triplane.sample_mean(planes, pts, 1.0)
+    want = triplane.sample_mean_plain(planes, pts, 1.0)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(got).all()) and bool(
+        torch.isfinite(want).all())
+    worst = max(worst, (got - want).abs().max().item())
+    print(f"[3] sampler kernel vs plain on its general paths (C 8, 48, 30, "
+          f"128; 32 x 48 planes; off-plane points) and beside non-finite "
+          f"texels: max abs err {worst:.3e} (bound {SAMPLER_ATOL:g}), finite "
+          f"{finite}", flush=True)
+    if not finite or not worst <= SAMPLER_ATOL:
+        fail(f"sampler kernel on its general paths: err {worst}, finite "
+             f"{finite}")
+
+
+def sampler_at_batch(dev: torch.device, g, batch: int) -> dict:
+    """The sampler's time, plain time and bound at another batch of the
+    main path's points (the reenactment path renders batch 8)."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    planes = torch.randn((batch, 3, 256, 256, 32), generator=g).to(dev)
+    pts = main_path_points(dev, batch)
+    out = triplane.sample_mean(planes, pts, 1.0)
+    want = triplane.sample_mean_plain(planes, pts, 1.0)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    if not err <= SAMPLER_ATOL:
+        fail(f"sampler kernel disagrees with its plain version at batch "
+             f"{batch}: {err}")
+    ms = cuda_time_ms(lambda: triplane.sample_mean(planes, pts, 1.0))
+    plain_ms = cuda_time_ms(lambda: triplane.sample_mean_plain(planes, pts,
+                                                               1.0))
+    corners = in_bounds_corners(pts, 256, 256)
+    c = planes.shape[-1]
+    bd = bound(nbytes(planes, pts, out),
+               corners * 2 * c + pts.shape[0] * pts.shape[1] * (c + 60))
+    print(f"    triplane_sampler at batch {batch}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']}, max abs err {err:.3e}; the gather reads "
+          f"{corners * c * 4 / 1e6:.1f} MB", flush=True)
+    return {f"ms_batch{batch}": ms, f"plain_ms_batch{batch}": plain_ms,
+            f"bound_ms_batch{batch}": bd["bound_ms"]}
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
@@ -245,6 +323,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
           f"{tuple(pts.shape)} + {tuple(off.shape)} off-plane)", flush=True)
     if not err <= SAMPLER_ATOL:
         fail(f"sampler kernel disagrees with its plain version: {err}")
+    phase_sampler_general_paths(dev, g)
     out = triplane.sample_mean(planes, pts, 1.0)
     ms = cuda_time_ms(lambda: triplane.sample_mean(planes, pts, 1.0))
     plain_ms = cuda_time_ms(lambda: triplane.sample_mean_plain(planes, pts,
@@ -262,6 +341,13 @@ def phase_kernels(dev: torch.device) -> list[dict]:
         "hfa_gp_tpu/core/pallas/triplane.py:299", err, ms, plain_ms,
         library_ms, nbytes(planes, pts, out),
         corners * 2 * c + n_points * (c + 60)))
+    # the bound counts each plane byte once; the gather itself reads every
+    # in-bounds corner's channels, from L1 and L2
+    results[-1]["gather_bytes"] = corners * c * 4
+    print(f"    the gather reads {corners} in-bounds corners x {c * 4} B = "
+          f"{corners * c * 4 / 1e6:.1f} MB: {corners * c * 4 / ms / 1e6:.1f} "
+          f"GB/s at the kernel's time", flush=True)
+    results[-1].update(sampler_at_batch(dev, g, 8))
 
     # -- sampler backward: g (2, 786432, 32) → d planes, off-plane too
     err, rel = 0.0, 0.0
@@ -421,6 +507,16 @@ def phase_kernels_flash_ce(dev: torch.device, g) -> list[dict]:
         if not rel <= BWD_RTOL:
             fail(f"flash-CE backward kernel disagrees with its plain version "
                  f"at C {c}: {rel} of the gradient's scale")
+        again = flash_ce.flash_ce_stats_backward(ne, w, lab, s, None, ct_se,
+                                                 ct_tgt)
+        torch.cuda.synchronize()
+        if not torch.equal(again[1], got[1]):
+            fail(f"flash-CE backward: d w differs between two launches at "
+                 f"C {c}")
+        run_to_run = rel_err(again[0], got[0])[1]
+        print(f"    two launches: d w equal bit for bit, d norm_emb "
+              f"{run_to_run:.3e} of its scale apart (atomics)", flush=True)
+        del again
         if c != 1_000_000:
             del ne, w, lab, got, want
             continue
@@ -455,9 +551,59 @@ def phase_kernels_flash_ce(dev: torch.device, g) -> list[dict]:
             ms, plain_ms, None, nbytes(ne, w, lab, ct_se, ct_tgt, *got),
             flops)
         entries["bwd"]["max_err_over_scale"] = rel
+        # what each part of the backward kernel costs: a time per variant
+        # with parts removed (a variant's result means nothing)
+        from hfa_gp_tpu_torch.tools import profile_arcface
+        ablation = profile_arcface.ablate_ce_backward(ne, w, lab, s, ct_se,
+                                                      ct_tgt)
+        print("    flash-CE backward, ablation (ms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in ablation.items()), flush=True)
+        entries["bwd"]["ablation_ms"] = ablation
         del ne, w, lab, got, want
     torch.cuda.empty_cache()
+    phase_flash_ce_general_paths(dev, g)
     return [entries["fwd"], entries["bwd"]]
+
+
+def phase_flash_ce_general_paths(dev: torch.device, g) -> None:
+    """K5 and K6 where the fast path does not reach: more batch rows than a
+    block holds at once (384 > 256), a ragged last class tile, a depth that
+    is no multiple of 4 (scalar copies) and one that is no multiple of the
+    slice depth, and bf16 operands."""
+    from hfa_gp_tpu_torch.core.kernels import flash_ce
+    s = 64.0
+    for b, d, c, mm in ((384, 512, 300_001, None), (384, 510, 30_001, None),
+                        (8, 72, 1_000, None), (300, 128, 10_007,
+                                               torch.bfloat16)):
+        ne, w, lab = ce_inputs(dev, g, b, d, c)
+        se, tgt = flash_ce.flash_ce_stats(ne, w, lab, s, mm)
+        se_p, tgt_p = flash_ce.flash_ce_stats_plain(ne, w, lab, s, mm)
+        ct_se = (torch.randn((b,), generator=g).to(dev) / se_p).contiguous()
+        ct_tgt = torch.randn((b,), generator=g).to(dev)
+        got = flash_ce.flash_ce_stats_backward(ne, w, lab, s, mm, ct_se,
+                                               ct_tgt)
+        again = flash_ce.flash_ce_stats_backward(ne, w, lab, s, mm, ct_se,
+                                                 ct_tgt)
+        want = flash_ce.flash_ce_stats_backward_plain(ne, w, lab, s, mm,
+                                                      ct_se, ct_tgt)
+        torch.cuda.synchronize()
+        se_rel = ((se - se_p).abs() / se_p.abs().clamp_min(1e-30)).max().item()
+        tgt_err = (tgt - tgt_p).abs().max().item()
+        rel = max(rel_err(x, y)[1] for x, y in zip(got, want))
+        # bf16 operands: the plain version rounds the same operands but sums
+        # the gradient products of rounded draw in another order
+        bound_ = BWD_RTOL if mm is None else CE_BF16_BWD_RTOL
+        print(f"[3] flash-CE kernels vs plain, B {b}, d {d}, C {c}, operands "
+              f"{'fp32' if mm is None else 'bf16'}: se_x {se_rel:.3e}, "
+              f"tgt_raw {tgt_err:.3e}, gradients {rel:.3e} of their scale "
+              f"(bound {bound_:g}); d w equal in two launches: "
+              f"{torch.equal(got[1], again[1])}", flush=True)
+        if not se_rel <= CE_SE_RTOL or not tgt_err <= CE_TGT_ATOL \
+                or not rel <= bound_ or not torch.equal(got[1], again[1]):
+            fail(f"flash-CE kernels at B {b}, d {d}, C {c}: se_x {se_rel}, "
+                 f"tgt_raw {tgt_err}, gradients {rel}")
+        del ne, w, lab, got, again, want
+    torch.cuda.empty_cache()
 
 
 def phase_kernels_probe(dev: torch.device) -> dict:
@@ -518,6 +664,13 @@ def write_dataset(root: str, n: int = 4, size: int = 256,
     with open(os.path.join(d, "test.json"), "w") as f:
         json.dump({"labels": labels}, f)
 
+
+# launches of each kernel on a reenactment batch, an RGB training step and
+# an arcface step: what [4], [7] and [10] hold the counts to
+LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
+                     "triplane_sampler_bwd": (0, 2, 0),
+                     "ray_marcher": (2, 2, 0), "ray_marcher_bwd": (0, 1, 0),
+                     "flash_ce_fwd": (0, 0, 1), "flash_ce_bwd": (0, 0, 1)}
 
 NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
                "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
@@ -1170,6 +1323,20 @@ def main() -> None:
             k["launches_reenact"] = reenact_launches[k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
+    # what each kernel loses on a unit of each path: launches x (ms - bound)
+    # a reenactment batch / an RGB step / an arcface step (the sampler at
+    # batch 2 here; its batch-8 figures are in its entry)
+    print("launches x (ms - bound), ms a reenactment batch / RGB step / "
+          "arcface step:", flush=True)
+    for k in kernels:
+        per_unit = LAUNCHES_PER_UNIT.get(k["name"])
+        if per_unit is None:
+            continue
+        gap = k["ms"] - k["bound_ms"]
+        k["launches_per_unit"] = list(per_unit)
+        k["launches_x_gap_ms"] = [n * gap for n in per_unit]
+        print(f"    {k['name']}: " + " / ".join(
+            f"{n} x {gap:.4f} = {n * gap:.4f}" for n in per_unit), flush=True)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
                                             "hfa_gp_tpu"))

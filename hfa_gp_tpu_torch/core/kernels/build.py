@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -78,13 +79,27 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def _run_all(cmds: list[list[str]]) -> str:
+def _run_all(cmds: list[list[str]], names: list[str]) -> str:
     """Start every command at once, wait for all, raise on the first that
-    failed; returns their joined output."""
+    failed; returns their joined output. BUILD_LOG["each"] gets the seconds
+    each command took, by its name."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for cmd in cmds]
-    outs = [p.communicate()[0] for p in procs]
+    outs = [""] * len(cmds)
+    seconds = BUILD_LOG.setdefault("each", {})
+
+    def wait(i: int) -> None:
+        outs[i] = procs[i].communicate()[0]
+        seconds[names[i]] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(cmds))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for cmd, p, out in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
@@ -99,9 +114,11 @@ def _compile_and_link(srcs: list[str], so: str) -> str:
     objs = [os.path.join(os.path.dirname(so),
                          f"{os.path.basename(s)[:-3]}.{tag}.o") for s in srcs]
     log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
-                    for s, o in zip(srcs, objs)])
+                    for s, o in zip(srcs, objs)],
+                   [os.path.basename(s) for s in srcs])
     tmp = f"{so}.{tag}"
-    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]],
+                    ["link"])
     os.replace(tmp, so)          # atomic: concurrent builds agree
     for o in objs:
         os.remove(o)
@@ -121,10 +138,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_triplane_mean_bwd.restype = ctypes.c_int
     lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march_bwd.restype = ctypes.c_int
-    lib.hfa_flash_ce_fwd.argtypes = [p, p, p, p, p, p, i, i, i64, f, i, p]
+    lib.hfa_flash_ce_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i64, f, i, p]
     lib.hfa_flash_ce_fwd.restype = ctypes.c_int
-    lib.hfa_flash_ce_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i64, f, i, p]
+    lib.hfa_flash_ce_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i64, f, i,
+                                     p]
     lib.hfa_flash_ce_bwd.restype = ctypes.c_int
+    lib.hfa_flash_ce_bwd_probe.argtypes = [p, p, p, p, p, p, p, p, i, i, i64,
+                                           f, i, p]
+    lib.hfa_flash_ce_bwd_probe.restype = ctypes.c_int
     lib.hfa_triplane_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
     lib.hfa_triplane_probe.restype = ctypes.c_int
     return lib

@@ -3,8 +3,10 @@ wrapper, plain versions and launch counts.
 
 Replaces the TPU kernels of `hfa_gp_tpu/parallel/pallas_ce.py`:
 `_fwd_kernel` (via `_stats_fwd`) by `csrc/flash_ce.cu` and `_bwd_kernel`
-(via `_stats_bwd`) by `csrc/flash_ce_bwd.cu`. Each source's header says what
-bounds it on the H100 and how the design answers that.
+(via `_stats_bwd`) by `csrc/flash_ce_bwd.cu` (the kernel itself is the
+template of `csrc/flash_ce_bwd.cuh`, which `csrc/flash_ce_bwd_probe.cu`
+instantiates with parts removed). Each source's header says what bounds it
+on the H100 and how the design answers that.
 
     se_x[b]    = Σ_{j ≠ lab[b]} exp(s·clip(cos_bj, ±1) − s)
     tgt_raw[b] = clip(cos_{b, lab[b]}), 0 where lab[b] is outside [0, C)
@@ -32,7 +34,7 @@ from . import build
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 
-CLASS_TILE = 128   # classes per block, as in csrc/flash_ce_common.cuh
+CLASS_TILE = 128   # classes per block: TILE_C of csrc/flash_ce_common.cuh
 
 
 def _round_operand(x: torch.Tensor, mm_dtype) -> torch.Tensor:
@@ -101,6 +103,14 @@ def _check_cuda_inputs(fn: str, norm_emb, w, local_lab, extra: dict) -> None:
         raise ValueError(f"{fn}: empty input")
 
 
+def transposed_scratch(norm_emb: torch.Tensor) -> torch.Tensor:
+    """Scratch for the kernels' transposed copy of the embeddings: (d, B
+    rounded up to 4), so that each of its rows is 16-byte aligned."""
+    b, d = norm_emb.shape
+    return torch.empty((d, -(-b // 4) * 4), dtype=torch.float32,
+                       device=norm_emb.device)
+
+
 def _launch_forward(norm_emb, w, local_lab, s: float, mm_dtype):
     flag = _mm_flag(mm_dtype)
     _check_cuda_inputs("flash_ce_stats", norm_emb, w, local_lab, {})
@@ -114,8 +124,8 @@ def _launch_forward(norm_emb, w, local_lab, s: float, mm_dtype):
     with torch.cuda.device(dev):
         err = lib.hfa_flash_ce_fwd(
             norm_emb.data_ptr(), w.data_ptr(), local_lab.data_ptr(),
-            partial.data_ptr(), se_x.data_ptr(), tgt_raw.data_ptr(),
-            b, d, c, float(s), flag,
+            partial.data_ptr(), transposed_scratch(norm_emb).data_ptr(),
+            se_x.data_ptr(), tgt_raw.data_ptr(), b, d, c, float(s), flag,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_flash_ce_fwd")
     LAUNCHES += 1
@@ -151,7 +161,8 @@ def flash_ce_stats_backward(norm_emb, w, local_lab, s: float, mm_dtype,
         err = lib.hfa_flash_ce_bwd(
             norm_emb.data_ptr(), w.data_ptr(), local_lab.data_ptr(),
             ct_se.data_ptr(), ct_tgt.data_ptr(), dw.data_ptr(),
-            dne.data_ptr(), b, d, c, float(s), flag,
+            dne.data_ptr(), transposed_scratch(norm_emb).data_ptr(), b, d, c,
+            float(s), flag,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_flash_ce_bwd")
     LAUNCHES_BWD += 1

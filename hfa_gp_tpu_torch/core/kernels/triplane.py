@@ -3,7 +3,9 @@
 Forward: replaces the TPU kernel `hfa_gp_tpu/core/pallas/triplane.py::
 _sampler_kernel` (via `_sample_blocked_impl`, reached from the JAX
 renderer's `eval_points`) and fuses the plane mean the JAX renderer runs
-right after it; the kernel is `csrc/triplane.cu`. Backward (d planes):
+right after it; the kernel is `csrc/triplane.cu` (the template of
+`csrc/triplane_sampler.cuh` with every stage on; `csrc/triplane_probe.cu`
+instantiates the same template with stages removed). Backward (d planes):
 replaces `_sampler_bwd_kernel_vmem` and `_sampler_bwd_kernel_hbm` (via
 `_sample_blocked_bwd_vmem` / `_sample_blocked_bwd_hbm`), which compute one
 function; the kernel is `csrc/triplane_bwd.cu`. Each source's header says
@@ -95,8 +97,10 @@ def _check_cuda_inputs(fn: str, planes_shape, dev: torch.device,
                 or not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be a contiguous fp32 "
                              f"tensor on {dev}")
-    if b * coordinates.shape[1] >= 2 ** 31:
-        raise ValueError(f"{fn}: B·M exceeds the kernel's int32 range")
+    if b * coordinates.shape[1] >= 2 ** 31 \
+            or int(np.prod(planes_shape[2:])) >= 2 ** 31:
+        raise ValueError(f"{fn}: B·M or H·W·C exceeds the kernel's int32 "
+                         f"range")
 
 
 def sample_mean_backward(g: torch.Tensor, planes_shape,

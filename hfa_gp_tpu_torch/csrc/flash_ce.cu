@@ -9,16 +9,20 @@
 //   cos_bj     = (w_j . ne_b) / |w_j|
 //
 // The (B, C) cosines never reach device memory: a block computes a
-// 128-class x 128-row tile of them in registers and reduces it at once. The
+// 128-class x 256-row tile of them in registers and reduces it at once. The
 // target column is left out of the sum inside the kernel (the caller adds
 // the margined term with its own exp, so the denominator can never fall
 // below the target's term); nothing is summed in full and subtracted.
 //
 // Bound on the H100: operations. At B 256, d 512, C 1,000,000 the product
-// is 0.262 TFLOP of fp32 FMA against 2.05 GB of table read once. Design: a
-// shared-memory-tiled fp32 product (flash_ce_common.cuh) with the norm,
-// clip, exp and row sum fused into its epilogue. Blocks of neighbouring
-// batch tiles share a class tile, which L2 serves.
+// is 0.262 TFLOP of fp32 FMA (3.9 ms at 67 TFLOP/s) against 2.05 GB of
+// table read once (0.6 ms). Design: the pipelined fp32 product of
+// flash_ce_common.cuh (a block of 512 threads owns 128 classes x 256 batch
+// rows; operand slices arrive through a three-stage `cp.async` ring; the
+// embeddings are transposed once, by a small kernel ahead of this one, so
+// that no slice is transposed on its way) with the norm, clip, exp and row
+// sum fused into its epilogue.
+// Blocks of neighbouring batch groups share a class tile, which L2 serves.
 //
 // Classes run in parallel blocks, so the sum over class tiles is finished by
 // a second small kernel from per-tile partial sums, in a fixed order: se_x
@@ -33,39 +37,45 @@ namespace {
 
 using namespace hfa_ce;
 
-__global__ void __launch_bounds__(THREADS)
-flash_ce_fwd_kernel(const float* __restrict__ ne, const float* __restrict__ w,
-                    const int* __restrict__ lab, float* __restrict__ partial,
+// the ring, 1 / |w| per class, the labels of the batch group
+constexpr int FWD_SMEM_BYTES = (NST_RAW * RAW_STAGE + TILE_C + TILE_B) * 4;
+
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_ce_fwd_kernel(const float* __restrict__ ne_t,
+                    const float* __restrict__ w, const int* __restrict__ lab,
+                    float* __restrict__ partial,
                     float* __restrict__ tgt_raw, int B, int d, int64_t C,
-                    int n_btiles, float s, int vec, int bf16) {
-  __shared__ __align__(16) float stage[2 * DEPTH * LD];
-  __shared__ float inv_s[TILE];
-  __shared__ int lab_s[TILE];
-  const int64_t ctile = blockIdx.x / n_btiles;
-  const int btile = blockIdx.x % n_btiles;
-  const int64_t c0 = ctile * TILE;
-  const int b0 = btile * TILE;
+                    int n_bgroups, float s, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* inv_s = ring + NST_RAW * RAW_STAGE;
+  int* lab_s = reinterpret_cast<int*>(inv_s + TILE_C);
+  const int64_t ctile = blockIdx.x / n_bgroups;
+  const int bgroup = blockIdx.x % n_bgroups;
+  const int64_t c0 = ctile * TILE_C;
+  const int b0 = bgroup * TILE_B;
   const int t = threadIdx.x;
-  const int ty = t >> 4, tx = t & 15;
-  if (t < TILE) lab_s[t] = (b0 + t < B) ? lab[b0 + t] : -1;
+  const Lane ln;
+  for (int r = t; r < TILE_B; r += THREADS)
+    lab_s[r] = (b0 + r < B) ? lab[b0 + r] : -1;
 
-  float acc[8][8];
-  raw_tile(w, ne, C, B, d, c0, b0, vec != 0, bf16 != 0, stage,
-           stage + DEPTH * LD, inv_s, acc);
+  float acc[TM][TN];
+  raw_tile<BF16>(w, ne_t, C, B, d, c0, b0, vec != 0, ring, inv_s, acc);
 
-  // epilogue: rows of acc are classes (ty), columns batch rows (tx)
-  float se[8];
+  // epilogue: rows of acc are classes, columns batch rows
+  float se[TN];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) se[j] = 0.0f;
+  for (int j = 0; j < TN; ++j) se[j] = 0.0f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = tile_index(ty, i);
+  for (int i = 0; i < TM; ++i) {
+    const int m = raw_class(ln, i);
     const int64_t c = c0 + m;
     if (c >= C) continue;
     const float inv = inv_s[m];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = tile_index(tx, j);
+    for (int j = 0; j < TN; ++j) {
+      const int n = raw_row(ln, j);
       if (b0 + n >= B) continue;
       const float logit = fminf(fmaxf(acc[i][j] * inv, -1.0f), 1.0f);
       if ((int64_t)lab_s[n] == c)
@@ -74,17 +84,20 @@ flash_ce_fwd_kernel(const float* __restrict__ ne, const float* __restrict__ w,
         se[j] += expf(logit * s - s);
     }
   }
-  // sum over the 16 class groups (ty) in a fixed order
-  float* red = stage;                       // [16][TILE]
+  // sum over the tile's classes in a fixed order: the warp's 4 lane rows,
+  // then the 4 warps that share the batch rows
+  float* red = ring;                        // [4][TILE_B]; the ring is free
 #pragma unroll
-  for (int j = 0; j < 8; ++j) red[ty * TILE + tile_index(tx, j)] = se[j];
-  __syncthreads();
-  if (t < TILE && b0 + t < B) {
-    float sum = 0.0f;
-#pragma unroll
-    for (int g = 0; g < 16; ++g) sum += red[g * TILE + t];
-    partial[ctile * B + b0 + t] = sum;
+  for (int j = 0; j < TN; ++j) {
+    float v = se[j];
+    v += __shfl_xor_sync(0xffffffffu, v, 8);
+    v += __shfl_xor_sync(0xffffffffu, v, 16);
+    if (ln.ty == 0) red[(ln.warp / WX) * TILE_B + raw_row(ln, j)] = v;
   }
+  __syncthreads();
+  for (int r = t; r < TILE_B && b0 + r < B; r += THREADS)
+    partial[ctile * B + b0 + r] = ((red[r] + red[TILE_B + r]) +
+                                   red[2 * TILE_B + r]) + red[3 * TILE_B + r];
 }
 
 // se_x[b] = sum over class tiles of partial[tile][b], in a fixed order.
@@ -106,23 +119,46 @@ __global__ void flash_ce_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+template <bool BF16>
+cudaError_t launch_fwd(const float* ne_t, const float* w, const int* lab,
+                       float* partial, float* tgt_raw, int B, int d,
+                       int64_t C, int64_t n_ctiles, int n_bgroups, float s,
+                       cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_ce_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      FWD_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  flash_ce_fwd_kernel<BF16>
+      <<<(unsigned)(n_ctiles * n_bgroups), THREADS, FWD_SMEM_BYTES, st>>>(
+          ne_t, w, lab, partial, tgt_raw, B, d, C, n_bgroups, s, d % 4 == 0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// partial: scratch of ceil(C / 128) * B floats. tgt_raw must be zeroed by
-// the caller; se_x is written in full.
+// partial: scratch of ceil(C / 128) * B floats; ne_t: scratch of
+// d * ceil(B / 4) * 4 floats (the embeddings, transposed and padded).
+// tgt_raw must be zeroed by the caller; se_x is written in full.
 extern "C" int hfa_flash_ce_fwd(const void* ne, const void* w,
-                                const void* lab, void* partial, void* se_x,
-                                void* tgt_raw, int B, int d, int64_t C,
-                                float s, int bf16, void* stream) {
+                                const void* lab, void* partial, void* ne_t,
+                                void* se_x, void* tgt_raw, int B, int d,
+                                int64_t C, float s, int bf16, void* stream) {
   if (B <= 0 || C <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const int64_t n_ctiles = (C + TILE - 1) / TILE;
-  const int n_btiles = (B + TILE - 1) / TILE;
-  if (n_ctiles * n_btiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int64_t n_ctiles = (C + TILE_C - 1) / TILE_C;
+  const int n_bgroups = (B + TILE_B - 1) / TILE_B;
+  if (n_ctiles * n_bgroups > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  flash_ce_fwd_kernel<<<(unsigned)(n_ctiles * n_btiles), THREADS, 0, st>>>(
-      (const float*)ne, (const float*)w, (const int*)lab, (float*)partial,
-      (float*)tgt_raw, B, d, C, n_btiles, s, d % 4 == 0, bf16);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      transpose_embeddings((const float*)ne, (float*)ne_t, B, d, st);
+  if (err != cudaSuccess) return (int)err;
+  err = bf16 ? launch_fwd<true>((const float*)ne_t, (const float*)w,
+                              (const int*)lab, (float*)partial,
+                              (float*)tgt_raw, B, d, C, n_ctiles, n_bgroups,
+                              s, st)
+             : launch_fwd<false>((const float*)ne_t, (const float*)w,
+                               (const int*)lab, (float*)partial,
+                               (float*)tgt_raw, B, d, C, n_ctiles, n_bgroups,
+                               s, st);
   if (err != cudaSuccess) return (int)err;
   flash_ce_reduce_kernel<<<(unsigned)((B + 31) / 32), dim3(32, 32), 0, st>>>(
       (const float*)partial, (float*)se_x, B, n_ctiles);

@@ -14,79 +14,42 @@
 // (renderer._PLANE_INV).
 //
 // Bound on the H100: gather bytes. Every point reads 3 planes x 4 corners
-// x C floats (12 x 128 B at C = 32), about 9.7 GB per pass at batch 8 before
-// L2 reuse, against ~0.8 GB of output. Design: one warp per point and one
-// lane per channel, so each corner read is one coalesced 128-byte row;
-// the projection and the bilinear weights are computed once per warp (by
-// every lane, from broadcast loads), and neighbouring points of a ray land
-// on neighbouring texels, which L2 (50 MB) serves. The TPU kernel's slabs,
-// quad packing and one-hot matmuls existed only because TPU gathers are
-// issue-bound; none of them is needed here.
+// x C floats (12 x 128 B at C = 32): 2.4 GB a pass at batch 2 and 9.7 GB at
+// batch 8, served by L1 and L2 (the planes themselves are 25 MB a batch
+// element), against 0.2 and 0.8 GB of output. The compulsory bytes (each
+// plane byte once) are a thirtieth of that, so the byte bound is out of a
+// gather's reach; what the design can do is make the gather with as few
+// instructions and warps as possible and let neighbouring points share
+// lines (the kernel is triplane_sampler.cuh):
+//
+//  * Several points a warp, 16 bytes a lane. At C = 32 eight lanes cover a
+//    texel with one float4 each, so a warp holds four consecutive points:
+//    neighbouring depth samples of one ray, which often share texel rows,
+//    so the coalescer and L1 merge them. A quarter of the warps, load
+//    instructions and per-warp arithmetic of one warp a point. Any C with
+//    C % 4 == 0 takes this path at the power of two of lanes that covers
+//    it; any other C runs one float a lane (the general, slower path).
+//  * The footprint once: with H = W a point's three plane footprints are
+//    three axis footprints (x, y, z), not six; the batch element is the
+//    grid's second dimension, so no index is divided.
+//  * All twelve corner reads are in flight before the first is used,
+//    through the read-only path (ld.global.nc), predicated and not
+//    branched. An out-of-plane corner contributes exactly 0, also beside a
+//    texel that is not finite: its read does not happen.
+//  * The sums keep grid_sample's order (nw, ne, sw, se; planes 0, 1, 2;
+//    then / 3).
+// The TPU kernel's slabs, quad packing and one-hot matmuls existed only
+// because a TPU gather costs an instruction a row; none is needed here.
 //
 // The coordinate arithmetic (texels, weights, zeros padding) lives in
 // triplane_common.cuh, shared with the backward kernel.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "triplane_common.cuh"
-
-namespace {
-
-__device__ __forceinline__ float bilinear(const float* __restrict__ plane,
-                                          float u, float v, int H, int W,
-                                          int C, int c) {
-  const hfa::Footprint f = hfa::footprint(u, v, H, W);
-  const int xi = f.xi, yi = f.yi;
-  // grid_sample's order: nw, ne, sw, se
-  float acc = 0.0f;
-  if (f.y0 && f.x0)
-    acc += plane[((size_t)yi * W + xi) * C + c] * (f.ww * f.wn);
-  if (f.y0 && f.x1)
-    acc += plane[((size_t)yi * W + xi + 1) * C + c] * (f.we * f.wn);
-  if (f.y1 && f.x0)
-    acc += plane[((size_t)(yi + 1) * W + xi) * C + c] * (f.ww * f.ws);
-  if (f.y1 && f.x1)
-    acc += plane[((size_t)(yi + 1) * W + xi + 1) * C + c] * (f.we * f.ws);
-  return acc;
-}
-
-__global__ void triplane_mean_kernel(const float* __restrict__ planes,
-                                     const float* __restrict__ coords,
-                                     float* __restrict__ out, int B, int M,
-                                     int H, int W, int C, float scale) {
-  const int64_t point = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (point >= (int64_t)B * M) return;
-  const int b = (int)(point / M);
-  const float x = scale * coords[point * 3 + 0];
-  const float y = scale * coords[point * 3 + 1];
-  const float z = scale * coords[point * 3 + 2];
-  const size_t plane_size = (size_t)H * W * C;
-  const float* p0 = planes + (size_t)(b * 3 + 0) * plane_size;
-  const float* p1 = p0 + plane_size;
-  const float* p2 = p1 + plane_size;
-  for (int c = lane; c < C; c += 32) {
-    const float s = bilinear(p0, x, y, H, W, C, c)
-                    + bilinear(p1, x, z, H, W, C, c)
-                    + bilinear(p2, z, x, H, W, C, c);
-    out[point * C + c] = s / 3.0f;
-  }
-}
-
-}  // namespace
+#include "triplane_sampler.cuh"
 
 extern "C" int hfa_triplane_mean(const void* planes, const void* coords,
                                  void* out, int B, int M, int H, int W, int C,
                                  float scale, void* stream) {
-  const int threads = 256;                       // 8 points per block
-  const int64_t warps = (int64_t)B * M;
-  const int64_t blocks = (warps * 32 + threads - 1) / threads;
-  if (blocks > 0) {
-    triplane_mean_kernel<<<(unsigned)blocks, threads, 0,
-                           (cudaStream_t)stream>>>(
-        (const float*)planes, (const float*)coords, (float*)out, B, M, H, W,
-        C, scale);
-  }
-  return (int)cudaGetLastError();
+  return hfa::launch_triplane_sampler<true, true, true, true, true, true>(
+      (const float*)planes, (const float*)coords, (float*)out, B, M, H, W, C,
+      scale, (cudaStream_t)stream);
 }

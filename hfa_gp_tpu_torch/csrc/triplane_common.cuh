@@ -1,6 +1,6 @@
 // Coordinate arithmetic shared by the tri-plane sampler's forward
-// (triplane.cu) and backward (triplane_bwd.cu) kernels, so that both see
-// exactly the same texels, weights and zeros-padding rule.
+// (triplane_sampler.cuh) and backward (triplane_bwd.cu) kernels, so that
+// both see exactly the same texels, weights and zeros-padding rule.
 //
 // Semantics are F.grid_sample's: bilinear, padding_mode="zeros",
 // align_corners=False. The source coordinate is computed with
@@ -52,6 +52,28 @@ __device__ __forceinline__ Footprint footprint(float u, float v, int H,
   f.xi = f.x0 || f.x1 ? (int)fx : 0;
   f.yi = f.y0 || f.y1 ? (int)fy : 0;
   return f;
+}
+
+// One axis of a footprint: the lower texel index i, the weights of the
+// lower and the upper texel, and which of the two lie inside [0, size). The
+// same arithmetic as `footprint`, one coordinate at a time: where H = W a
+// point's three plane footprints are made of three of these (x, y, z).
+struct Axis {
+  int i;
+  float lo, hi;
+  bool v0, v1;
+};
+
+__device__ __forceinline__ Axis axis_footprint(float u, int size) {
+  const float ix = unnormalize(u, size);
+  const float fx = floorf(ix);
+  Axis a;
+  a.hi = ix - fx;
+  a.lo = (fx + 1.0f) - ix;
+  a.v0 = fx >= 0.0f && fx < (float)size;
+  a.v1 = fx + 1.0f >= 0.0f && fx + 1.0f < (float)size;
+  a.i = a.v0 || a.v1 ? (int)fx : 0;
+  return a;
 }
 
 }  // namespace hfa

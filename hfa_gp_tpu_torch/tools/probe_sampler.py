@@ -4,16 +4,18 @@ tools/probe_sampler.py and tools/probe_sampler2.py).
 
     python -m hfa_gp_tpu_torch.tools.probe_sampler [--iters 20]
 
-Builds `csrc/triplane_probe.cu` (the forward sampler with compile-time
-switches that remove one stage each), checks that the variant with every
-stage on equals `triplane.sample_mean` bit for bit, and prints one timed
+Builds `csrc/triplane_probe.cu` (the forward sampler's template,
+`csrc/triplane_sampler.cuh`, with compile-time switches that remove one
+stage each; `csrc/triplane.cu` is the same template with every stage on),
+checks that the variant with every stage on equals `triplane.sample_mean`
+bit for bit, and prints one timed
 line per variant (CUDA events, median) at the TPU probes' shapes: batch 4,
 128² rays × 48 depths, planes (4, 3, 256, 256, 32) fp32. A variant with a
 stage removed computes something else; only its time means anything.
 
 Stages and the TPU probes' switches they answer to:
   coords    the coordinate read            (do_txy)
-  weights   the bilinear weight build      (do_wbuild)
+  weights   the three axis footprints      (do_wbuild)
   gather    the 12 corner reads            (do_dma and do_matmul: the slab
                                             copy and the one-hot product
                                             are how the TPU gathers)
@@ -70,6 +72,9 @@ def probe(planes: torch.Tensor, coordinates: torch.Tensor, box_warp: float,
                                 {"coordinates": coordinates,
                                  "planes": planes})
     b, _, h, w, c = planes.shape
+    if c % 4:
+        raise ValueError(f"probe: the channel count must be a multiple of 4, "
+                         f"got {c}")
     m = coordinates.shape[1]
     out = torch.zeros((b, m, c), dtype=torch.float32, device=planes.device)
     lib = build.library()

@@ -3,6 +3,7 @@ width (iresnet50, 512-d embeddings, fp32, TF32 off).
 
     python -m hfa_gp_tpu_torch.tools.profile_arcface \
         [--num_classes 1000000] [--sample_rate 1.0] [--batch 256] [--steps 3]
+    python -m hfa_gp_tpu_torch.tools.profile_arcface --ablate_ce_backward
 
 Prints, for a seeded state and seeded synthetic batches:
   * the card's name and power limit (`nvidia-smi`);
@@ -14,6 +15,15 @@ Prints, for a seeded state and seeded synthetic batches:
     kernel (top 25) and by group, the share of the flash-CE kernels, and
     the share of the profiled window in which the device was busy;
   * the peak device memory of a step.
+With --ablate_ce_backward it prints instead a time per variant of the
+flash-CE backward kernel with parts removed by compile-time switches
+(`csrc/flash_ce_bwd_probe.cu`; the card's machine has no kernel profiler):
+the whole kernel; without d norm_emb's atomics; without d w's store;
+without the FMAs of one of its three products; with all of those off (the
+copies, barriers and exp epilogue alone); without the operands' copies;
+without copies, store and atomics (the FMAs, barriers and exp epilogue
+alone); and without the barrier of each slice. A variant with a part removed computes something else; only its
+time means anything.
 Needs a CUDA card; the kernels are built at first use.
 """
 
@@ -25,15 +35,88 @@ import numpy as np
 import torch
 
 from ..cli import common, train_arcface
+from ..core.kernels import build, flash_ce
 from ..models.arcface import registry
 from ..parallel.partial_fc import PartialFC
 from ..train import arcface as arc
-from .measure import card_line, events_ms
+from .measure import card_line, events_ms, median_ms
 from .profile_train import device_report
 
 SEED = 0
 OUR_KERNELS = ("flash_ce_fwd_kernel", "flash_ce_reduce_kernel",
                "flash_ce_bwd_kernel")
+
+
+# variants of csrc/flash_ce_bwd_probe.cu, by their number there
+CE_BACKWARD_VARIANTS = ("whole", "no dne atomics", "no dW store",
+                        "no cosine FMAs", "no dW FMAs", "no dne FMAs",
+                        "copies, barriers and exp only", "no copies",
+                        "FMAs, barriers and exp only", "no slice barriers")
+
+
+def ce_backward_variant(norm_emb, w, local_lab, s: float, ct_se, ct_tgt,
+                        variant: int):
+    """(d norm_emb, d w) from variant `variant` of the flash-CE backward
+    kernel (0: the whole kernel, equal to `flash_ce_stats_backward`; fp32
+    operands). CUDA tensors only (fp32, contiguous); anything else raises."""
+    flash_ce._check_cuda_inputs("ce_backward_variant", norm_emb, w, local_lab,
+                                {"ct_se": ct_se, "ct_tgt": ct_tgt})
+    (b, d), c = norm_emb.shape, w.shape[0]
+    dw = torch.empty_like(w)
+    dne = torch.zeros_like(norm_emb)
+    with torch.cuda.device(norm_emb.device):
+        err = build.library().hfa_flash_ce_bwd_probe(
+            norm_emb.data_ptr(), w.data_ptr(), local_lab.data_ptr(),
+            ct_se.data_ptr(), ct_tgt.data_ptr(), dw.data_ptr(),
+            dne.data_ptr(), flash_ce.transposed_scratch(norm_emb).data_ptr(),
+            b, d, c, float(s), variant,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "hfa_flash_ce_bwd_probe")
+    return dne, dw
+
+
+def ablate_ce_backward(norm_emb, w, local_lab, s: float, ct_se, ct_tgt,
+                       iters: int = 5) -> dict[str, float]:
+    """Median ms of each variant; checks first that the whole variant's d w
+    equals the kernel's bit for bit."""
+    want = flash_ce.flash_ce_stats_backward(norm_emb, w, local_lab, s, None,
+                                            ct_se, ct_tgt)
+    got = ce_backward_variant(norm_emb, w, local_lab, s, ct_se, ct_tgt, 0)
+    torch.cuda.synchronize()
+    if not torch.equal(got[1], want[1]):
+        raise RuntimeError("the ablation's whole variant differs from the "
+                           "flash-CE backward kernel in d w")
+    del want, got
+    times = {"flash_ce_stats_backward": median_ms(
+        lambda: flash_ce.flash_ce_stats_backward(
+            norm_emb, w, local_lab, s, None, ct_se, ct_tgt), iters, 2)}
+    for i, name in enumerate(CE_BACKWARD_VARIANTS):
+        times[name] = median_ms(lambda: ce_backward_variant(
+            norm_emb, w, local_lab, s, ct_se, ct_tgt, i), iters, 2)
+    return times
+
+
+def main_ablate(args) -> dict[str, float]:
+    """The flash-CE backward's ablation at the head's shapes: unit-row
+    embeddings (--batch, 512), a table of --num_classes rows drawn as the
+    trainer draws it, cotangents of the size the loss gives them."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(SEED)
+    ne = torch.randn((args.batch, 512), generator=g, device=dev)
+    ne = ne / ne.norm(dim=1, keepdim=True)
+    w = torch.randn((args.num_classes, 512), generator=g, device=dev) * 0.01
+    lab = torch.randint(0, args.num_classes, (args.batch,), generator=g,
+                        device=dev).int()
+    se, _ = flash_ce.flash_ce_stats(ne, w, lab, 64.0)
+    ct_se = (torch.randn((args.batch,), generator=g, device=dev)
+             / se).contiguous()
+    ct_tgt = torch.randn((args.batch,), generator=g, device=dev)
+    times = ablate_ce_backward(ne, w, lab, 64.0, ct_se, ct_tgt)
+    print(f"flash-CE backward, B {args.batch}, d 512, C {args.num_classes}, "
+          f"fp32, median of 5 (CUDA events):")
+    for name, ms in times.items():
+        print(f"  {name:32s} {ms:9.4f} ms", flush=True)
+    return times
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -43,6 +126,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sample_rate", type=float, default=1.0)
     p.add_argument("--batch", type=int, default=256)
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--ablate_ce_backward", action="store_true")
     return p
 
 
@@ -51,6 +135,9 @@ def main(args) -> None:
         raise SystemExit("profile_arcface needs a CUDA card")
     common.fp32_backends()
     print(card_line(), flush=True)
+    if args.ablate_ce_backward:
+        main_ablate(args)
+        return
     dev = torch.device("cuda")
     pfc = PartialFC(args.num_classes, 512, sample_rate=args.sample_rate)
     sparse = args.sample_rate < 1.0

@@ -36,6 +36,11 @@ from hfa_gp_tpu_torch.train import arcface as arc
 from hfa_gp_tpu_torch.train import checkpoint as ckpt
 from hfa_gp_tpu_torch.utils import observability
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 NET, SIZE, BATCH = "iresnet18", 32, 4
 
 

@@ -24,6 +24,11 @@ from hfa_gp_tpu.core.pallas.raymarch import pallas_ray_march
 from hfa_gp_tpu.models.eg3d import renderer as jrnd
 from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():
@@ -298,6 +303,48 @@ def test_sampler_kernel_matches_plain(cuda, c, m):
     got = triplane.sample_mean(planes, pts, 1.0)
     torch.cuda.synchronize()
     assert triplane.LAUNCHES == n + 1
+    torch.testing.assert_close(got, triplane.sample_mean_plain(planes, pts,
+                                                               1.0),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+@pytest.mark.parametrize("c", [8, 32, 48, 30])
+def test_sampler_kernel_lane_layouts_match_plain(cuda, c, spread):
+    """16-byte lanes at 2, 8 and 16 lanes a point (C 8, 32, 48) and one
+    float a lane (C 30), on non-square planes, with most points off the
+    planes at spread 3."""
+    rng = np.random.default_rng(c)
+    planes = torch.from_numpy(
+        rng.standard_normal((3, 3, 20, 28, c)).astype(np.float32)).to(cuda)
+    pts = torch.from_numpy(((rng.uniform(size=(3, 5000, 3)) - 0.5) * spread)
+                           .astype(np.float32)).to(cuda)
+    got = triplane.sample_mean(planes, pts, 1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, triplane.sample_mean_plain(planes, pts,
+                                                               1.0),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [8, 32, 48])
+def test_sampler_kernel_never_reads_out_of_plane_corners(cuda, c):
+    """Planes whose last row and column are NaN, points a fraction of a
+    texel around the first row and column: an out-of-plane corner's address
+    falls on a NaN texel of the row or plane before, and must contribute
+    exactly 0."""
+    rng = np.random.default_rng(c)
+    planes = rng.standard_normal((2, 3, 16, 16, c)).astype(np.float32)
+    planes[:, :, -1] = np.nan
+    planes[:, :, :, -1] = np.nan
+    pts = (-0.5 + rng.uniform(-0.5, 0.5, (2, 4096, 3)) / 16) \
+        .astype(np.float32)
+    planes, pts = torch.from_numpy(planes).to(cuda), \
+        torch.from_numpy(pts).to(cuda)
+    got = triplane.sample_mean(planes, pts, 1.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, triplane.sample_mean_plain(planes, pts,
                                                                1.0),
                                rtol=1e-5, atol=1e-5)

@@ -18,6 +18,11 @@ from hfa_gp_tpu_torch.core import ops as tops
 from hfa_gp_tpu_torch.models import lpips as tlpips
 from hfa_gp_tpu_torch.utils import convert
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 
 def _images(seed, b=2, size=64):
     rng = np.random.default_rng(seed)

@@ -26,6 +26,11 @@ from hfa_gp_tpu_torch.models.eg3d.generator import EG3DConfig
 from hfa_gp_tpu_torch.utils import convert
 from tests.test_eg3d import small_config
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 
 def torch_small_config(sampler_fine: str = "stratified") -> EG3DConfig:
     """The port's twin of tests/test_eg3d.small_config."""

@@ -27,6 +27,11 @@ from hfa_gp_tpu_torch.utils import convert
 from tests.test_eg3d import small_config
 from tests.test_torch_networks import torch_small_config
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

@@ -37,6 +37,11 @@ from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
 from tests.test_torch_networks import torch_small_avatar
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

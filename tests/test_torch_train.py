@@ -41,6 +41,11 @@ from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
 from tests.test_torch_networks import numpy_tree, torch_small_config
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 JCFG = jheads.AvatarConfig(size=64, dim_shape=8, eg3d=small_config())
 TCFG = theads.AvatarConfig(size=64, dim_shape=8,
                            eg3d=torch_small_config("global"))

@@ -25,6 +25,11 @@ from hfa_gp_tpu_torch.train import state as tstate
 from hfa_gp_tpu_torch.utils.convert import ParamTree
 from tests.fixtures import make_avatar_dataset
 
+# One intra-op thread: the suite runs several worker processes side by
+# side, and a thread pool per worker as wide as the machine makes them wait
+# on each other (the port's CPU tests: 468 s with the default, 216 s so).
+torch.set_num_threads(1)
+
 
 def _tree(seed):
     """A small tree with the trainer's top-level keys (no 4-D leaf, so
@@ -162,7 +167,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path):
 
 def test_fit_selfrecon_small_improves_psnr(capsys):
     out = fit_selfrecon.main(fit_selfrecon.build_argparser().parse_args(
-        ["--small", "--device", "cpu", "--steps", "20"]))
+        ["--small", "--device", "cpu", "--steps", "20", "--n_frames", "8"]))
     assert "OK" in capsys.readouterr().out
     assert out["train_after"] > out["train_before"] + 3.0
     assert out["test_after"] > out["test_before"] + 3.0
