@@ -13,10 +13,13 @@ result line:
      shapes, in fp32, with kernel, plain and library-call times (CUDA
      events, median of 20) beside the bound computed from the shapes; the
      sampler also at the reenactment path's batch 8, at channel counts
-     that take its general paths and on planes with non-finite edges; the
-     flash-CE kernels also at a batch above one group of rows with ragged
-     class and depth counts, d w bit for bit across two launches, and the
-     backward's ablation (a time per variant);
+     that take its general paths and on planes with non-finite edges; its
+     backward at batch 2 and 8 with the points' layout, without it and on
+     shuffled points, on its general paths (C 8, 48, 30, a grazing camera,
+     off-plane points), and its ablation (a time per variant); the marcher
+     at N 96 and 48; the flash-CE kernels also at a batch above one group
+     of rows with ragged class and depth counts, d w bit for bit across
+     two launches, and the backward's ablation (a time per variant);
   4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
      dataset: 4 PNGs of 512², a video, finite frames, and each forward
@@ -48,9 +51,11 @@ result line:
      seeded state and batch;
  12. steady-state arcface samples/s and peak device memory at the two
      configurations of 10 (printed, not asserted);
- 13. the sampler probe through its entry point, `hfa_gp_tpu_torch.tools.
-     probe_sampler.main`: the full variant equal to the sampler bit for
-     bit, and a time per variant.
+ 13. the sampler probes through their entry point, `hfa_gp_tpu_torch.
+     tools.probe_sampler.main`: the forward's full variant equal to the
+     sampler bit for bit, and a time per variant; with `--backward` the
+     backward's whole variant held to the kernel, a time per variant and
+     per tile.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step. The line before the last is a
@@ -135,19 +140,12 @@ def fail(msg: str) -> None:
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` CUDA-event timings of fn(), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    """Device time of one fn(), after warm-up: the median of `iters`
+    CUDA-event timings of about 2 ms of back-to-back calls, over their
+    count (`tools.measure.device_ms`: the host's time to issue a call hides
+    behind the card's work, as on the paths)."""
+    from hfa_gp_tpu_torch.tools.measure import device_ms
+    return device_ms(fn, iters, warmup)
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -195,19 +193,32 @@ def phase_build() -> None:
             print(f"    {line.strip()}", flush=True)
 
 
-def main_path_points(dev: torch.device, batch: int) -> torch.Tensor:
-    """(batch, 128²·48, 3) points of the coarse pass for the mean camera."""
+# how main_path_points lie: 128 x 128 rays, row-major, of 48 samples each
+MAIN_LAYOUT = (128, 128, 48)
+
+
+def grid_points(dev: torch.device, batch: int, res: int, n: int,
+                yaw: float = 0.0) -> torch.Tensor:
+    """(batch, res²·n, 3) stratified points of res² rays, n samples each,
+    row-major and samples fastest (the layout (res, res, n)), from a camera
+    turned `yaw` radians off the mean pose."""
     from hfa_gp_tpu_torch.core import camera
     from hfa_gp_tpu_torch.models.eg3d.renderer import (RenderConfig,
                                                        sample_stratified)
     rc = RenderConfig()
-    label = camera.flip_yz_label(camera.sample_camera_label(None, mode=None))
+    label = camera.flip_yz_label(camera.sample_camera_label(
+        None, mode=None, horizontal_mean=np.pi / 2 + yaw))
     c2w, intr = camera.unpack_label(label.repeat(batch, 1).to(dev))
-    o, d = camera.generate_rays(c2w, intr, rc.neural_rendering_resolution)
-    depths = sample_stratified(o, rc.ray_start, rc.ray_end,
-                               rc.depth_resolution)
+    o, d = camera.generate_rays(c2w, intr, res)
+    depths = sample_stratified(o, rc.ray_start, rc.ray_end, n)
     return (o[:, :, None] + depths * d[:, :, None]).reshape(batch, -1, 3) \
         .contiguous()
+
+
+def main_path_points(dev: torch.device, batch: int) -> torch.Tensor:
+    """(batch, 128²·48, 3) points of the coarse pass for the mean camera,
+    laid out as MAIN_LAYOUT."""
+    return grid_points(dev, batch, *MAIN_LAYOUT[1:])
 
 
 def in_bounds_corners(pts: torch.Tensor, h: int, w: int) -> int:
@@ -288,6 +299,154 @@ def sampler_at_batch(dev: torch.device, g, batch: int) -> dict:
             f"bound_ms_batch{batch}": bd["bound_ms"]}
 
 
+def sampler_bwd_cases(dev, g, planes_shape, pts):
+    """K2 on the main path's points with their layout, without it, and on
+    the same points shuffled (with their cotangents, so the gradient is
+    the same): {case: (g, points, layout)}, and the plain version's
+    gradient."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    b, m = pts.shape[:2]
+    cot = torch.randn((b, m, planes_shape[-1]), generator=g).to(dev)
+    perm = torch.randperm(m, generator=g).to(dev)
+    cases = {"layout": (cot, pts, MAIN_LAYOUT), "no layout": (cot, pts, None),
+             "shuffled": (cot[:, perm].contiguous(), pts[:, perm].contiguous(),
+                          None)}
+    return cases, triplane.sample_mean_backward_plain(cot, planes_shape, pts,
+                                                      1.0)
+
+
+def phase_sampler_backward(dev, g, planes, pts, off) -> dict:
+    """K2/K3 at batch 2 and 8 (main path's points with their layout, without
+    it, shuffled), off-plane, on its general paths; plain and library-call
+    times; the ablation (a time per variant of the probe)."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    from hfa_gp_tpu_torch.tools import probe_sampler
+    shape = planes.shape
+    c = shape[-1]
+    cases, want = sampler_bwd_cases(dev, g, shape, pts)
+    cot_off = torch.randn((2, off.shape[1], c), generator=g).to(dev)
+    errs = {}
+    for name, (cot, p, layout) in cases.items():
+        errs[name] = rel_err(triplane.sample_mean_backward(
+            cot, shape, p, 1.0, layout), want)
+    errs["off-plane"] = rel_err(
+        triplane.sample_mean_backward(cot_off, shape, off, 1.0),
+        triplane.sample_mean_backward_plain(cot_off, shape, off, 1.0))
+    torch.cuda.synchronize()
+    err = max(e for e, _ in errs.values())
+    rel = max(r for _, r in errs.values())
+    print(f"[3] sampler backward kernel vs plain, batch 2: "
+          + ", ".join(f"{k} {r:.3e}" for k, (_, r) in errs.items())
+          + f" of the gradient's scale (bound {BWD_RTOL:g}; g "
+          f"{(2, pts.shape[1], c)}, layout {MAIN_LAYOUT}; off-plane "
+          f"{tuple(cot_off.shape)})", flush=True)
+    if not rel <= BWD_RTOL:
+        fail(f"sampler backward kernel disagrees with its plain version: "
+             f"{errs}")
+    phase_sampler_bwd_general_paths(dev, g)
+    times = {name: cuda_time_ms(lambda: triplane.sample_mean_backward(
+        cot, shape, p, 1.0, layout)) for name, (cot, p, layout) in cases.items()}
+    cot = cases["layout"][0]
+    plain_ms = cuda_time_ms(lambda: triplane.sample_mean_backward_plain(
+        cot, shape, pts, 1.0))
+    # the library call: autograd's backward of F.grid_sample + mean alone
+    # (the plain version also runs the forward)
+    leaf = planes.clone().requires_grad_(True)
+    graph = triplane.sample_mean_plain(leaf, pts, 1.0)
+    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        graph, leaf, cot, retain_graph=True))
+    del leaf, graph
+    corners = in_bounds_corners(pts, shape[2], shape[3])
+    n_points = pts.shape[0] * pts.shape[1]
+    entry = kernel_entry(
+        "triplane_sampler_bwd", "hfa_gp_tpu_torch/csrc/triplane_bwd.cu",
+        "hfa_gp_tpu/core/pallas/triplane.py:466", err, times["layout"],
+        plain_ms, library_ms, nbytes(cot, pts, planes),
+        corners * 2 * c + n_points * (c + 60))
+    # one kernel for both TPU backward kernels (VMEM and HBM accumulator)
+    entry["also_replaces"] = "hfa_gp_tpu/core/pallas/triplane.py:414"
+    entry["max_err_over_scale"] = rel
+    entry["ms_no_layout"] = times["no layout"]
+    entry["ms_shuffled"] = times["shuffled"]
+    print(f"    batch 2: with the layout {times['layout']:.4f} ms, without "
+          f"{times['no layout']:.4f} ms, shuffled points "
+          f"{times['shuffled']:.4f} ms", flush=True)
+    # what each stage costs: a time per variant of the probe (a variant's
+    # result means nothing)
+    ablation = probe_sampler.ablate_backward(cot, shape, pts, MAIN_LAYOUT)
+    print("    sampler backward, ablation at batch 2 with the layout (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ablation.items()),
+          flush=True)
+    entry["ablation_ms"] = ablation
+    del cases, want
+
+    # batch 8, the reenactment path's batch
+    shape8 = (8, *shape[1:])
+    pts8 = main_path_points(dev, 8)
+    cases, want = sampler_bwd_cases(dev, g, shape8, pts8)
+    rel8 = max(rel_err(triplane.sample_mean_backward(cot, shape8, p, 1.0,
+                                                     layout), want)[1]
+               for cot, p, layout in cases.values())
+    torch.cuda.synchronize()
+    if not rel8 <= BWD_RTOL:
+        fail(f"sampler backward kernel disagrees with its plain version at "
+             f"batch 8: {rel8} of the gradient's scale")
+    times8 = {name: cuda_time_ms(lambda: triplane.sample_mean_backward(
+        cot, shape8, p, 1.0, layout)) for name, (cot, p, layout)
+        in cases.items()}
+    cot = cases["layout"][0]
+    plain8 = cuda_time_ms(lambda: triplane.sample_mean_backward_plain(
+        cot, shape8, pts8, 1.0), iters=5)
+    corners8 = in_bounds_corners(pts8, shape[2], shape[3])
+    bd8 = bound(nbytes(cot, pts8) + 4 * int(np.prod(shape8)),
+                corners8 * 2 * c + pts8.shape[0] * pts8.shape[1] * (c + 60))
+    print(f"    batch 8: with the layout {times8['layout']:.4f} ms, without "
+          f"{times8['no layout']:.4f} ms, shuffled points "
+          f"{times8['shuffled']:.4f} ms; plain {plain8:.4f} ms, bound "
+          f"{bd8['bound_ms']:.4f} ms by {bd8['bound_by']}; "
+          f"{rel8:.3e} of the gradient's scale", flush=True)
+    entry.update({"ms_batch8": times8["layout"],
+                  "ms_no_layout_batch8": times8["no layout"],
+                  "ms_shuffled_batch8": times8["shuffled"],
+                  "plain_ms_batch8": plain8,
+                  "bound_ms_batch8": bd8["bound_ms"]})
+    del cases, want, pts8, cot
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_sampler_bwd_general_paths(dev, g) -> None:
+    """K2 where the main path does not take it: C 8 (the sorted path, two
+    lanes a texel row), 48 (the direct pass, 16 bytes a lane) and 30 (the
+    direct pass, one float a lane), non-square planes, tiles whose boxes
+    overflow the sorted path's buckets (a camera turned 1.3 rad), tiles cut
+    by the edge of the layout, off-plane points, batch 3."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    worst = 0.0
+    for b, (h, w), c, res, n, yaw, spread in (
+            (3, (64, 64), 8, 37, 11, 0.0, None),
+            (2, (32, 48), 48, 20, 7, 0.4, None),
+            (2, (32, 32), 30, 16, 9, 0.0, None),
+            (2, (256, 256), 32, 64, 48, 1.3, None),
+            (2, (64, 64), 32, 30, 13, 0.0, 3.0)):
+        shape = (b, 3, h, w, c)
+        pts = grid_points(dev, b, res, n, yaw)
+        if spread is not None:
+            pts = ((torch.rand(pts.shape, generator=g) - 0.5) * spread).to(dev)
+        cot = torch.randn((b, pts.shape[1], c), generator=g).to(dev)
+        want = triplane.sample_mean_backward_plain(cot, shape, pts, 1.0)
+        for layout in ((res, res, n), None):
+            got = triplane.sample_mean_backward(cot, shape, pts, 1.0, layout)
+            worst = max(worst, rel_err(got, want)[1])
+    torch.cuda.synchronize()
+    print(f"[3] sampler backward kernel vs plain on its general paths (C 8, "
+          f"48, 30; 32 x 48 planes; a camera turned 1.3 rad; ragged tiles; "
+          f"off-plane points; with and without the layout): {worst:.3e} of "
+          f"the gradient's scale (bound {BWD_RTOL:g})", flush=True)
+    if not worst <= BWD_RTOL:
+        fail(f"sampler backward kernel on its general paths: {worst}")
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
                  n_bytes, n_flops) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -349,71 +508,57 @@ def phase_kernels(dev: torch.device) -> list[dict]:
           f"GB/s at the kernel's time", flush=True)
     results[-1].update(sampler_at_batch(dev, g, 8))
 
-    # -- sampler backward: g (2, 786432, 32) → d planes, off-plane too
-    err, rel = 0.0, 0.0
-    for p in (pts, off):
-        cot = torch.randn((2, p.shape[1], c), generator=g).to(dev)
-        got = triplane.sample_mean_backward(cot, planes.shape, p, 1.0)
-        want = triplane.sample_mean_backward_plain(cot, planes.shape, p, 1.0)
-        torch.cuda.synchronize()
-        e, r = rel_err(got, want)
-        err, rel = max(err, e), max(rel, r)
-    print(f"[3] sampler backward kernel vs plain: max abs err {err:.3e}, "
-          f"{rel:.3e} of the gradient's scale (bound {BWD_RTOL:g}; g "
-          f"{tuple(cot.shape)} off-plane after {(2, pts.shape[1], c)})",
-          flush=True)
-    if not rel <= BWD_RTOL:
-        fail(f"sampler backward kernel disagrees with its plain version: "
-             f"{rel} of the gradient's scale")
-    cot = torch.randn((2, pts.shape[1], c), generator=g).to(dev)
-    ms = cuda_time_ms(lambda: triplane.sample_mean_backward(
-        cot, planes.shape, pts, 1.0))
-    plain_ms = cuda_time_ms(lambda: triplane.sample_mean_backward_plain(
-        cot, planes.shape, pts, 1.0))
-    # the library call: autograd's backward of F.grid_sample + mean alone
-    # (the plain version also runs the forward)
-    leaf = planes.clone().requires_grad_(True)
-    graph = triplane.sample_mean_plain(leaf, pts, 1.0)
-    library_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        graph, leaf, cot, retain_graph=True))
-    results.append(kernel_entry(
-        "triplane_sampler_bwd", "hfa_gp_tpu_torch/csrc/triplane_bwd.cu",
-        "hfa_gp_tpu/core/pallas/triplane.py:466", err, ms, plain_ms,
-        library_ms, nbytes(cot, pts, planes),
-        corners * 2 * c + n_points * (c + 60)))
-    # one kernel for both TPU backward kernels (VMEM and HBM accumulator)
-    results[-1]["also_replaces"] = "hfa_gp_tpu/core/pallas/triplane.py:414"
-    del planes, pts, off, cot, leaf, graph, out, got, want
+    # -- sampler backward: g (2, 786432, 32) → d planes
+    results.append(phase_sampler_backward(dev, g, planes, pts, off))
+    del planes, pts, off, out
 
-    # -- marcher: (2, 16384, 96, 32), the unified pass
-    b, r, n, c = 2, 16384, 96, 32
-    colors = torch.rand((b, r, n, c), generator=g).to(dev)
-    dens = (torch.randn((b, r, n, 1), generator=g) * 3.0).to(dev)
-    depths = torch.sort(2.25 + 1.05 * torch.rand((b, r, n, 1), generator=g),
-                        dim=2).values.to(dev)
-    got = raymarch.ray_march(colors, dens, depths)
-    want = raymarch.ray_march_plain(colors, dens, depths)
-    torch.cuda.synchronize()
-    err = 0.0
-    for name, x, y in zip(("rgb", "depth", "weights"), got, want):
-        e = (x - y).abs()
-        err = max(err, e.max().item())
-        if not bool((e <= MARCH_ATOL + MARCH_RTOL * y.abs()).all()):
-            fail(f"marcher kernel disagrees with its plain version on "
-                 f"{name}: max abs err {e.max().item()}")
-    print(f"[3] marcher kernel vs plain: max abs err {err:.3e} (bound rtol "
-          f"{MARCH_RTOL:g} atol {MARCH_ATOL:g}; colors {tuple(colors.shape)})",
-          flush=True)
-    ms = cuda_time_ms(lambda: raymarch.ray_march(colors, dens, depths))
-    plain_ms = cuda_time_ms(lambda: raymarch.ray_march_plain(colors, dens,
-                                                             depths))
-    # per midpoint and channel 4 operations, per midpoint ~25 of density
-    # and transmittance; no single PyTorch call computes the march
-    results.append(kernel_entry(
-        "ray_marcher", "hfa_gp_tpu_torch/csrc/raymarch.cu",
-        "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
-        nbytes(colors, dens, depths, *got),
-        b * r * (n - 1) * (4 * c + 25)))
+    # -- marcher: (2, 16384, 96, 32), the unified pass; then (2, 16384, 48,
+    # 32), the coarse pass
+    b, r, c = 2, 16384, 32
+    marcher = {}
+    for n in (96, 48):
+        colors = torch.rand((b, r, n, c), generator=g).to(dev)
+        dens = (torch.randn((b, r, n, 1), generator=g) * 3.0).to(dev)
+        depths = torch.sort(2.25 + 1.05 * torch.rand((b, r, n, 1),
+                                                      generator=g),
+                            dim=2).values.to(dev)
+        got = raymarch.ray_march(colors, dens, depths)
+        want = raymarch.ray_march_plain(colors, dens, depths)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, x, y in zip(("rgb", "depth", "weights"), got, want):
+            e = (x - y).abs()
+            err = max(err, e.max().item())
+            if not bool((e <= MARCH_ATOL + MARCH_RTOL * y.abs()).all()):
+                fail(f"marcher kernel disagrees with its plain version on "
+                     f"{name} at N {n}: max abs err {e.max().item()}")
+        print(f"[3] marcher kernel vs plain: max abs err {err:.3e} (bound "
+              f"rtol {MARCH_RTOL:g} atol {MARCH_ATOL:g}; colors "
+              f"{tuple(colors.shape)})", flush=True)
+        ms = cuda_time_ms(lambda: raymarch.ray_march(colors, dens, depths))
+        plain_ms = cuda_time_ms(lambda: raymarch.ray_march_plain(
+            colors, dens, depths))
+        # per midpoint and channel 4 operations, per midpoint ~25 of
+        # density and transmittance; no single PyTorch call computes the
+        # march
+        marcher[n] = kernel_entry(
+            "ray_marcher", "hfa_gp_tpu_torch/csrc/raymarch.cu",
+            "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
+            nbytes(colors, dens, depths, *got),
+            b * r * (n - 1) * (4 * c + 25))
+        if n == 96:
+            # the backward below runs on the unified pass's inputs
+            march_in = (colors, dens, depths, want)
+        del colors, dens, depths, got
+    results.append(marcher[96])
+    # one launch of each a reenactment batch or RGB step: the coarse pass's
+    results[-1].update({"ms_n48": marcher[48]["ms"],
+                        "plain_ms_n48": marcher[48]["plain_ms"],
+                        "bound_ms_n48": marcher[48]["bound_ms"],
+                        "max_abs_err_n48": marcher[48]["max_abs_err"]})
+    colors, dens, depths, want = march_in
+    n = 96
+    del march_in
 
     # -- marcher backward: all three cotangents
     cots = [torch.randn(x.shape, generator=g).to(dev) for x in want]
@@ -674,7 +819,8 @@ LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
 
 NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
                "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
-               "flash_ce_bwd": 0, "triplane_probe": 0}
+               "flash_ce_bwd": 0, "triplane_probe": 0,
+               "triplane_bwd_probe": 0}
 
 
 def reset_launches() -> None:
@@ -683,7 +829,7 @@ def reset_launches() -> None:
     triplane.LAUNCHES = triplane.LAUNCHES_BWD = 0
     raymarch.LAUNCHES = raymarch.LAUNCHES_BWD = 0
     flash_ce.LAUNCHES = flash_ce.LAUNCHES_BWD = 0
-    probe_sampler.LAUNCHES = 0
+    probe_sampler.LAUNCHES = probe_sampler.LAUNCHES_BWD = 0
 
 
 def read_launches() -> dict[str, int]:
@@ -695,7 +841,8 @@ def read_launches() -> dict[str, int]:
             "ray_marcher_bwd": raymarch.LAUNCHES_BWD,
             "flash_ce_fwd": flash_ce.LAUNCHES,
             "flash_ce_bwd": flash_ce.LAUNCHES_BWD,
-            "triplane_probe": probe_sampler.LAUNCHES}
+            "triplane_probe": probe_sampler.LAUNCHES,
+            "triplane_bwd_probe": probe_sampler.LAUNCHES_BWD}
 
 
 def phase_main_path(tmp: str) -> dict[str, int]:
@@ -1267,7 +1414,8 @@ def phase_arcface_throughput() -> None:
 
 
 def phase_probe_path() -> dict[str, int]:
-    """[13] the sampler probe through its entry point."""
+    """[13] the sampler probes through their entry point: the forward's
+    stages, then (`--backward`) the backward's variants and tiles."""
     from hfa_gp_tpu_torch.tools import probe_sampler
     reset_launches()
     times = probe_sampler.main(["--iters", "10"])
@@ -1278,6 +1426,16 @@ def phase_probe_path() -> dict[str, int]:
         fail(f"probe times {times}")
     if launches["triplane_probe"] < len(probe_sampler.VARIANTS):
         fail(f"the probe launched {launches}")
+    reset_launches()
+    times = probe_sampler.main(["--iters", "10", "--backward"])
+    bwd = read_launches()
+    print(f"     sampler backward probe: {len(times)} timings, launches "
+          f"{bwd}", flush=True)
+    if not all(np.isfinite(t) and t > 0 for t in times.values()):
+        fail(f"backward probe times {times}")
+    if bwd["triplane_bwd_probe"] < len(probe_sampler.BWD_VARIANTS) \
+            + len(probe_sampler.BWD_TILES):
+        fail(f"the backward probe launched {bwd}")
     return launches
 
 
@@ -1333,6 +1491,9 @@ def main() -> None:
         if per_unit is None:
             continue
         gap = k["ms"] - k["bound_ms"]
+        if k["name"] == "ray_marcher":
+            # half of its launches are the coarse pass's, at N 48
+            gap = (gap + k["ms_n48"] - k["bound_ms_n48"]) / 2
         k["launches_per_unit"] = list(per_unit)
         k["launches_x_gap_ms"] = [n * gap for n in per_unit]
         print(f"    {k['name']}: " + " / ".join(

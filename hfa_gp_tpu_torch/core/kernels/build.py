@@ -134,7 +134,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_triplane_mean.restype = ctypes.c_int
     lib.hfa_ray_march.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march.restype = ctypes.c_int
-    lib.hfa_triplane_mean_bwd.argtypes = [p, p, p, i, i, i, i, i, f, p]
+    lib.hfa_triplane_mean_bwd.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i,
+                                          p]
     lib.hfa_triplane_mean_bwd.restype = ctypes.c_int
     lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march_bwd.restype = ctypes.c_int
@@ -148,6 +149,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_flash_ce_bwd_probe.restype = ctypes.c_int
     lib.hfa_triplane_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
     lib.hfa_triplane_probe.restype = ctypes.c_int
+    lib.hfa_triplane_bwd_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i,
+                                           i, i, i, i, p]
+    lib.hfa_triplane_bwd_probe.restype = ctypes.c_int
     return lib
 
 

@@ -212,4 +212,5 @@ def ray_march(colors: torch.Tensor, densities: torch.Tensor,
         raise ValueError("ray_march: the CUDA kernels give no gradient to "
                          "depths; detach them")
     rgb, depth, weights = _RayMarch.apply(colors, densities, depths)
-    return rgb, depth.clamp(depths.min(), depths.max()), weights
+    lo, hi = torch.aminmax(depths)          # one pass, not two
+    return rgb, depth.clamp(lo, hi), weights

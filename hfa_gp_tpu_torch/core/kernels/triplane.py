@@ -8,8 +8,16 @@ right after it; the kernel is `csrc/triplane.cu` (the template of
 instantiates the same template with stages removed). Backward (d planes):
 replaces `_sampler_bwd_kernel_vmem` and `_sampler_bwd_kernel_hbm` (via
 `_sample_blocked_bwd_vmem` / `_sample_blocked_bwd_hbm`), which compute one
-function; the kernel is `csrc/triplane_bwd.cu`. Each source's header says
-what bounds it on the H100 and how the design answers that.
+function; the kernel is `csrc/triplane_bwd.cu` (the template of
+`csrc/triplane_bwd.cuh` with every stage on; `csrc/triplane_bwd_probe.cu`
+instantiates it with stages removed). Each source's header says what
+bounds it on the H100 and how the design answers that.
+
+The optional `layout=(h, w, n)` says that each batch element's M points
+are h × w rays, row-major, of n samples each (the renderer's image of
+rays): the backward kernel then sums screen tiles of rays × slabs of
+samples in shared memory. It changes no result, only the order of the
+backward's sums; the forward and the CPU route only check it.
 
 On CUDA `sample_mean` is a `torch.autograd.Function` over the two kernels.
 Sample coordinates get no gradient, as in the JAX package's custom VJP:
@@ -103,14 +111,32 @@ def _check_cuda_inputs(fn: str, planes_shape, dev: torch.device,
                          f"range")
 
 
+def check_layout(fn: str, layout, m: int):
+    """`layout` as (h, w, n) ints with h·w·n == m (the points a batch
+    element), or None; raises ValueError on anything else."""
+    if layout is None:
+        return None
+    try:
+        h, w, n = (int(x) for x in layout)
+    except (TypeError, ValueError):
+        raise ValueError(f"{fn}: layout must be (h, w, n), got {layout!r}") \
+            from None
+    if min(h, w, n) < 1 or h * w * n != m:
+        raise ValueError(f"{fn}: layout {(h, w, n)} does not cover the "
+                         f"{m} points of a batch element")
+    return h, w, n
+
+
 def sample_mean_backward(g: torch.Tensor, planes_shape,
-                         coordinates: torch.Tensor,
-                         box_warp: float) -> torch.Tensor:
+                         coordinates: torch.Tensor, box_warp: float,
+                         layout=None) -> torch.Tensor:
     """d planes (B, 3, H, W, C) for the cotangent g (B, M, C) of
-    `sample_mean`. A CPU tensor goes to `sample_mean_backward_plain`; a
-    CUDA tensor launches the backward kernel (fp32, contiguous) or
-    raises. The kernel sums with atomics, so its last bits change from
-    run to run."""
+    `sample_mean`, with the points' optional `layout` (h, w, n). A CPU
+    tensor goes to `sample_mean_backward_plain`; a CUDA tensor launches
+    the backward kernel (fp32, contiguous) or raises. The kernel sums with
+    atomics, so its last bits change from run to run."""
+    layout = check_layout("sample_mean_backward", layout,
+                          coordinates.shape[1])
     if g.device.type == "cpu":
         return sample_mean_backward_plain(g, planes_shape, coordinates,
                                           box_warp)
@@ -126,12 +152,13 @@ def sample_mean_backward(g: torch.Tensor, planes_shape,
                          f"expected {(b, m, c)}")
     grad = torch.zeros(tuple(planes_shape), dtype=torch.float32,
                        device=g.device)
+    lh, lw, ln = layout or (1, 1, m)
     lib = build.library()
     global LAUNCHES_BWD
     with torch.cuda.device(g.device):
         err = lib.hfa_triplane_mean_bwd(
             g.data_ptr(), coordinates.data_ptr(), grad.data_ptr(),
-            b, m, h, w, c, 2.0 / box_warp,
+            b, m, h, w, c, 2.0 / box_warp, lh, lw, ln,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_triplane_mean_bwd")
     LAUNCHES_BWD += 1
@@ -162,10 +189,11 @@ class _SampleMean(torch.autograd.Function):
     (planes only)."""
 
     @staticmethod
-    def forward(ctx, planes, coordinates, box_warp):
+    def forward(ctx, planes, coordinates, box_warp, layout):
         ctx.save_for_backward(coordinates)
         ctx.planes_shape = tuple(planes.shape)
         ctx.box_warp = box_warp
+        ctx.layout = layout
         return _launch_forward(planes, coordinates, box_warp)
 
     @staticmethod
@@ -173,18 +201,21 @@ class _SampleMean(torch.autograd.Function):
     def backward(ctx, g):
         (coordinates,) = ctx.saved_tensors
         return sample_mean_backward(g.contiguous(), ctx.planes_shape,
-                                    coordinates, ctx.box_warp), None, None
+                                    coordinates, ctx.box_warp,
+                                    ctx.layout), None, None, None
 
 
 def sample_mean(planes: torch.Tensor, coordinates: torch.Tensor,
-                box_warp: float) -> torch.Tensor:
+                box_warp: float, layout=None) -> torch.Tensor:
     """Plane-averaged tri-plane features (B, M, C), differentiable in
-    `planes`.
+    `planes`; `layout` (h, w, n), optional, is how the points lie (see the
+    module's docstring).
 
     A CPU tensor goes to `sample_mean_plain`; a CUDA tensor launches the
     kernels (fp32, contiguous) or raises. On CUDA `coordinates` must not
     require a gradient: the kernels give none, and a silent zero would
     train differently from the CPU."""
+    layout = check_layout("sample_mean", layout, coordinates.shape[1])
     if planes.device.type == "cpu":
         return sample_mean_plain(planes, coordinates, box_warp)
     if planes.device.type != "cuda":
@@ -192,4 +223,4 @@ def sample_mean(planes: torch.Tensor, coordinates: torch.Tensor,
     if coordinates.requires_grad:
         raise ValueError("sample_mean: the CUDA kernels give no gradient to "
                          "coordinates; detach them")
-    return _SampleMean.apply(planes, coordinates, box_warp)
+    return _SampleMean.apply(planes, coordinates, box_warp, layout)

@@ -11,79 +11,75 @@
 //   grad   (B, 3, H, W, C) fp32, zeroed by the caller; every point adds
 //                          g / 3 x bilinear weight to its in-bounds corner
 //                          rows on each of the three planes
+//   layout (lh, lw, ln)    optional: the points of a batch element are
+//                          lh x lw rays, row-major, of ln samples each
+//                          (lh * lw * ln == M); (1, 1, M) without one
 //
 // Texels, weights and the zeros-padding rule are the forward's
-// (triplane_common.cuh).
+// (triplane_common.cuh): an out-of-plane corner adds nothing and is never
+// addressed.
 //
 // Bound on the H100: bytes in principle (read g and coords once, write the
-// gradient once), contention in practice. Design: the direct form, not the
-// TPU's block plan: one warp per point, one lane per channel, so each of
-// the 12 corner updates is one coalesced 128-byte row of fire-and-forget
-// atomic adds (red.global.add.f32), resolved in L2. Neighbouring depth
-// samples of a ray land on the same texels, so those rows contend. The sum
-// order changes from run to run, and with it the last bits of the result.
+// gradient once), the texel updates in practice. A point adds to 12 texel
+// rows; at the coarse pass of batch 2 that is 17.7 M rows of 128 B (2.27 GB
+// of reductions) into a 50 MB gradient, about 80 updates a row. On an
+// H100 80GB HBM3 at 700 W, at batch 2: the previous design sent each of
+// them to L2 as 32 scalar atomics (1.05 ms); as 16-byte reductions they
+// take 0.90 ms, and as plain stores of the same bytes still 0.61 ms
+// (tools/probe_sampler.py --backward, device time): the traffic itself
+// costs, so it is summed on chip first. Neighbouring rays
+// and samples share texels: over a screen tile of 8 x 8 rays x 4 samples
+// the 12 rows of every point fall on a few hundred texels a plane. Summing
+// them in a shared window with shared-memory float atomics, as the TPU
+// kernel sums into its VMEM accumulator, was slower than no window at all
+// (1.48 against 0.85 ms, a call at a time: the float atomics, and windows
+// so large that two blocks a multiprocessor could not hide the read of g);
+// gathering each texel from sorted points was issue-bound (0.66 ms). The design (the template is
+// triplane_bwd.cuh):
+//
+//  * A block takes a tile of one batch element's points: 8 x 8 rays x 4
+//    samples when the caller passes the layout, else a run of 256
+//    contiguous points. The batch element is the grid's second dimension.
+//  * A thread a point: its three axis footprints, once; its weights and
+//    the bucket of its north-west corner on each plane; each plane's
+//    bucket box from a block max reduction. The tile's g comes into shared
+//    memory in one pass, all of a thread's loads in flight.
+//  * A plane whose box has at most 768 buckets is sorted: a counting sort
+//    of the tile's points by bucket (integer shared atomics, native on the
+//    card, and a block scan), each point's weights stored beside its index.
+//    Then a group of lanes (eight lanes of 16 bytes at C = 32) sweeps a
+//    bucket row west to east: it sums each bucket's points into its four
+//    corners in registers, adds the nw sums and the west bucket's ne sums
+//    to the texel row of the bucket's own row, and the sw and west se sums
+//    to the row below, dividing by 3, with one 16-byte reduction
+//    (red.global.add.v4.f32) a texel and row: each point is read once and
+//    each texel row takes at most two reductions. No float atomic touches
+//    shared memory; texels outside the plane are never addressed.
+//  * Any other plane (grazing poses, shuffled points) takes the direct
+//    pass: four points a warp, a 16-byte reduction a lane and corner, with
+//    K1's mapping. C % 4 != 0 or C > 32 takes only this pass (one float a
+//    lane where C % 4 != 0).
+// The sums change order from run to run, and with them the last bits of
+// the result.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "triplane_common.cuh"
+#include "triplane_bwd.cuh"
 
 namespace {
 
-__device__ __forceinline__ void scatter(float* __restrict__ plane, float u,
-                                        float v, int H, int W, int C, int c,
-                                        float g) {
-  const hfa::Footprint f = hfa::footprint(u, v, H, W);
-  const int xi = f.xi, yi = f.yi;
-  if (f.y0 && f.x0)
-    atomicAdd(plane + ((size_t)yi * W + xi) * C + c, g * (f.ww * f.wn));
-  if (f.y0 && f.x1)
-    atomicAdd(plane + ((size_t)yi * W + xi + 1) * C + c, g * (f.we * f.wn));
-  if (f.y1 && f.x0)
-    atomicAdd(plane + ((size_t)(yi + 1) * W + xi) * C + c,
-              g * (f.ww * f.ws));
-  if (f.y1 && f.x1)
-    atomicAdd(plane + ((size_t)(yi + 1) * W + xi + 1) * C + c,
-              g * (f.we * f.ws));
-}
-
-__global__ void triplane_mean_bwd_kernel(const float* __restrict__ g,
-                                         const float* __restrict__ coords,
-                                         float* __restrict__ grad, int B,
-                                         int M, int H, int W, int C,
-                                         float scale) {
-  const int64_t point = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (point >= (int64_t)B * M) return;
-  const int b = (int)(point / M);
-  const float x = scale * coords[point * 3 + 0];
-  const float y = scale * coords[point * 3 + 1];
-  const float z = scale * coords[point * 3 + 2];
-  const size_t plane_size = (size_t)H * W * C;
-  float* p0 = grad + (size_t)(b * 3 + 0) * plane_size;
-  float* p1 = p0 + plane_size;
-  float* p2 = p1 + plane_size;
-  for (int c = lane; c < C; c += 32) {
-    const float gc = g[point * C + c] / 3.0f;
-    scatter(p0, x, y, H, W, C, c, gc);
-    scatter(p1, x, z, H, W, C, c, gc);
-    scatter(p2, z, x, H, W, C, c, gc);
-  }
-}
+// the tile with a layout (rays x rays x samples) and the run of points
+// without one; settled on the H100 with tools/probe_sampler.py --backward
+constexpr int TILE_ROWS = 8, TILE_COLS = 8, TILE_SAMPLES = 4;
+constexpr int RUN_POINTS = 256;
 
 }  // namespace
 
 extern "C" int hfa_triplane_mean_bwd(const void* g, const void* coords,
                                      void* grad, int B, int M, int H, int W,
-                                     int C, float scale, void* stream) {
-  const int threads = 256;                       // 8 points per block
-  const int64_t warps = (int64_t)B * M;
-  const int64_t blocks = (warps * 32 + threads - 1) / threads;
-  if (blocks > 0) {
-    triplane_mean_bwd_kernel<<<(unsigned)blocks, threads, 0,
-                               (cudaStream_t)stream>>>(
-        (const float*)g, (const float*)coords, (float*)grad, B, M, H, W, C,
-        scale);
-  }
-  return (int)cudaGetLastError();
+                                     int C, float scale, int lh, int lw,
+                                     int ln, void* stream) {
+  const bool layout = lh > 1 || lw > 1;
+  return hfa::launch_triplane_bwd<true, hfa::BWD_ALL>(
+      (const float*)g, (const float*)coords, (float*)grad, B, M, H, W, C,
+      scale, lh, lw, ln, layout ? TILE_ROWS : 1, layout ? TILE_COLS : 1,
+      layout ? TILE_SAMPLES : RUN_POINTS, (cudaStream_t)stream);
 }

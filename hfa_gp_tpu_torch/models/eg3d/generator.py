@@ -77,7 +77,7 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
 
     feature_samples, depth_samples, _ = rnd.render_rays(
         params["decoder"], cfg.render, planes, ray_origins, ray_directions,
-        generator=render_generator)
+        generator=render_generator, ray_grid=(res, res))
 
     feature_image = feature_samples.permute(0, 2, 1).reshape(b, -1, res, res)
     rgb_image = feature_image[:, :3]

@@ -238,21 +238,26 @@ def unify_samples(d1, c1, s1, d2, c2, s2):
 
 def render_rays(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None,
+                ray_grid: tuple[int, int] | None = None):
     """planes (B, 3, H, W, C); rays (B, R, 3) → (features (B, R, 32),
     depth (B, R, 1), weight sum (B, R, 1)). Two sampler launches and two
     marcher launches per call when depth_resolution_importance > 0. Under
     autograd the backward launches the sampler's backward kernel twice and
     the marcher's once: the coarse march feeds only the detached fine
-    depths, so its backward never runs."""
+    depths, so its backward never runs. `ray_grid` (h, w), optional: the
+    rays are an h × w image, row-major (`camera.generate_rays`); the
+    sampler's backward kernel then sums neighbouring rays' samples
+    together. It changes no result."""
     b, r, _ = ray_origins.shape
     planes = planes.contiguous()
 
     def eval_points(depths):
         n = depths.shape[2]
         pts = ray_origins[:, :, None, :] + depths * ray_directions[:, :, None]
-        feats = triplane.sample_mean(planes, pts.reshape(b, -1, 3),
-                                     cfg.box_warp)
+        feats = triplane.sample_mean(
+            planes, pts.reshape(b, -1, 3), cfg.box_warp,
+            layout=None if ray_grid is None else (*ray_grid, n))
         rgb, sigma = decoder_apply(decoder_params, cfg, feats)
         return rgb.reshape(b, r, n, -1), sigma.reshape(b, r, n, 1)
 

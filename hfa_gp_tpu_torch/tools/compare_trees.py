@@ -7,10 +7,14 @@ neighbours are the same for both.
 
 Each turn is a subprocess started in the checkout's root, which imports
 that checkout's `chip_smoke.py` and package, builds that checkout's
-kernels, and prints:
-  * K1 (the sampler's forward) at batch 2 and batch 8, K2 (its backward),
-    K4 and K4' (the marcher), K5 and K6 (the flash-CE statistics) at
-    C 1,000,000 and 300,000: CUDA events, median of 20;
+kernels, and prints (the kernels timed in both turns by this file's own
+`measure.device_ms`: CUDA events around about 2 ms of back-to-back calls,
+median of 20):
+  * K1 (the sampler's forward) and K2 (its backward: with the points'
+    layout where the checkout's wrapper takes one, without it, and on
+    shuffled points) at batch 2 and batch 8, K4 (the marcher) at N 96 and
+    48, K4' (its backward), K5 and K6 (the flash-CE statistics) at
+    C 1,000,000 and 300,000;
   * `chip_smoke.py`'s phases [6] (reenactment frames/s at batch 8) and
     [12] (arcface samples/s, dense and row-sparse), as they print
     themselves, and [9] (RGB fitting steps/s at batch 2) over 40 steps
@@ -22,6 +26,7 @@ into a directory that `.gitignore` lists (`_chip/parent`).
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import subprocess
 import sys
@@ -30,7 +35,16 @@ import sys
 def worker() -> None:
     """One turn, in the current directory's checkout."""
     sys.path.insert(0, os.getcwd())
+    import importlib.util
+
     import torch
+
+    # the timer of this file's checkout, whichever checkout is measured
+    spec = importlib.util.spec_from_file_location(
+        "_measure", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "measure.py"))
+    measure = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(measure)
 
     import chip_smoke as cs
     from hfa_gp_tpu_torch.cli import common
@@ -39,28 +53,39 @@ def worker() -> None:
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(cs.SEED)
     print(cs.phase_card(), flush=True)
+    # a checkout from before the layout argument times K2 without it only
+    has_layout = "layout" in inspect.signature(
+        triplane.sample_mean_backward).parameters
     for batch in (2, 8):
         planes = torch.randn((batch, 3, 256, 256, 32), generator=g).to(dev)
         pts = cs.main_path_points(dev, batch)
-        ms = cs.cuda_time_ms(lambda: triplane.sample_mean(planes, pts, 1.0))
+        ms = measure.device_ms(lambda: triplane.sample_mean(planes, pts, 1.0))
         print(f"K1 sampler forward, batch {batch}: {ms:.4f} ms", flush=True)
-        if batch == 2:
-            cot = torch.randn((2, pts.shape[1], 32), generator=g).to(dev)
-            ms = cs.cuda_time_ms(lambda: triplane.sample_mean_backward(
-                cot, planes.shape, pts, 1.0))
-            print(f"K2 sampler backward, batch 2: {ms:.4f} ms", flush=True)
-            del cot
-        del planes, pts
-    b, r, n, c = 2, 16384, 96, 32
-    colors = torch.rand((b, r, n, c), generator=g).to(dev)
-    dens = (torch.randn((b, r, n, 1), generator=g) * 3.0).to(dev)
-    depths = torch.sort(2.25 + 1.05 * torch.rand((b, r, n, 1), generator=g),
-                        dim=2).values.to(dev)
+        cot = torch.randn((batch, pts.shape[1], 32), generator=g).to(dev)
+        perm = torch.randperm(pts.shape[1], generator=g).to(dev)
+        cases = {"no layout": (cot, pts, {}),
+                 "shuffled points": (cot[:, perm].contiguous(),
+                                     pts[:, perm].contiguous(), {})}
+        if has_layout:
+            cases["layout"] = (cot, pts, {"layout": (128, 128, 48)})
+        for name, (ct, p, kw) in cases.items():
+            ms = measure.device_ms(lambda: triplane.sample_mean_backward(
+                ct, planes.shape, p, 1.0, **kw))
+            print(f"K2 sampler backward, batch {batch}, {name}: {ms:.4f} ms",
+                  flush=True)
+        del planes, pts, cot, perm, cases
+    b, r, c = 2, 16384, 32
+    for n in (48, 96):
+        colors = torch.rand((b, r, n, c), generator=g).to(dev)
+        dens = (torch.randn((b, r, n, 1), generator=g) * 3.0).to(dev)
+        depths = torch.sort(2.25 + 1.05 * torch.rand((b, r, n, 1),
+                                                      generator=g),
+                            dim=2).values.to(dev)
+        ms = measure.device_ms(lambda: raymarch.ray_march(colors, dens, depths))
+        print(f"K4 marcher forward, N {n}: {ms:.4f} ms", flush=True)
     out = raymarch.ray_march(colors, dens, depths)
     cots = [torch.randn(x.shape, generator=g).to(dev) for x in out]
-    ms = cs.cuda_time_ms(lambda: raymarch.ray_march(colors, dens, depths))
-    print(f"K4 marcher forward: {ms:.4f} ms", flush=True)
-    ms = cs.cuda_time_ms(lambda: raymarch.ray_march_backward(
+    ms = measure.device_ms(lambda: raymarch.ray_march_backward(
         colors, dens, depths, *cots))
     print(f"K4' marcher backward: {ms:.4f} ms", flush=True)
     del colors, dens, depths, out, cots
@@ -70,8 +95,8 @@ def worker() -> None:
         se, _ = flash_ce.flash_ce_stats(ne, w, lab, s)
         ct_se = (torch.randn((b,), generator=g).to(dev) / se).contiguous()
         ct_tgt = torch.randn((b,), generator=g).to(dev)
-        k5 = cs.cuda_time_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s))
-        k6 = cs.cuda_time_ms(lambda: flash_ce.flash_ce_stats_backward(
+        k5 = measure.device_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s))
+        k6 = measure.device_ms(lambda: flash_ce.flash_ce_stats_backward(
             ne, w, lab, s, None, ct_se, ct_tgt))
         print(f"K5 flash-CE forward, C {c}: {k5:.4f} ms; K6 flash-CE "
               f"backward: {k6:.4f} ms", flush=True)

@@ -34,3 +34,22 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     return float(np.median([events_ms(fn) for _ in range(iters)]))
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3,
+              span_ms: float = 2.0) -> float:
+    """Device time of one fn(): the median of `iters` CUDA-event timings of
+    a run of back-to-back calls, over the run's length. A run lasts about
+    `span_ms` (at least one call, at most 20), so the host's time to issue
+    a call hides behind the card's work on the calls before it, as on a
+    path whose host runs ahead of the card; a call that takes longer than
+    `span_ms` is timed alone."""
+    for _ in range(warmup):
+        fn()
+    reps = max(1, min(20, int(span_ms / max(events_ms(fn), 1e-3))))
+
+    def run():
+        for _ in range(reps):
+            fn()
+
+    return float(np.median([events_ms(run) for _ in range(iters)])) / reps

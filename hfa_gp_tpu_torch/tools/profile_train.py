@@ -32,8 +32,9 @@ from ..utils.convert import ParamTree
 from .measure import card_line, events_ms
 
 SEED = 0
-OUR_KERNELS = ("triplane_sampler_kernel", "triplane_mean_bwd_kernel",
-               "ray_march_kernel", "ray_march_bwd_kernel")
+OUR_KERNELS = ("triplane_sampler_kernel", "triplane_bwd_kernel",
+               "ray_march_warp_kernel", "ray_march_kernel",
+               "ray_march_bwd_kernel")
 
 # kernel-name substrings → group, first match wins (after the hand-written
 # kernels, which the caller names)

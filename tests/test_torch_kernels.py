@@ -290,6 +290,34 @@ def test_cpu_wrappers_are_differentiable_like_the_plain_versions():
         _assert_grad_close(g_.numpy(), w_.numpy(), rel=1e-6)
 
 
+def test_sampler_layout_is_checked_and_changes_nothing_on_the_cpu():
+    """`layout` (h, w, n) only orders the backward kernel's sums: on the
+    CPU both wrappers give exactly what they give without it, through
+    autograd too, and raise on a layout that does not cover the points."""
+    planes, pts = (torch.from_numpy(a) for a in _planes_and_points(15, m=60))
+    g = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 60, 32)).astype(np.float32))
+    for layout in ((3, 4, 5), [1, 1, 60], (6, 10, 1)):
+        torch.testing.assert_close(
+            triplane.sample_mean(planes, pts, 1.0, layout),
+            triplane.sample_mean(planes, pts, 1.0), rtol=0, atol=0)
+        torch.testing.assert_close(
+            triplane.sample_mean_backward(g, planes.shape, pts, 1.0, layout),
+            triplane.sample_mean_backward(g, planes.shape, pts, 1.0),
+            rtol=0, atol=0)
+    leaf = planes.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        triplane.sample_mean(leaf, pts, 1.0, (3, 4, 5)), leaf, g)
+    torch.testing.assert_close(
+        got, triplane.sample_mean_backward_plain(g, planes.shape, pts, 1.0),
+        rtol=0, atol=0)
+    for bad in ((3, 4, 4), (60, 1), (0, 60, 1), (-1, -6, 10), "abc", 60):
+        with pytest.raises(ValueError):
+            triplane.sample_mean(planes, pts, 1.0, bad)
+        with pytest.raises(ValueError):
+            triplane.sample_mean_backward(g, planes.shape, pts, 1.0, bad)
+
+
 # -- on the card -------------------------------------------------------------
 
 
@@ -463,3 +491,115 @@ def test_kernel_wrappers_refuse_gradients_they_cannot_give(cuda):
         raymarch.ray_march_backward(
             colors, dens, depths.detach(),
             torch.zeros(colors.shape[:2], device=cuda))
+
+
+def _camera_points(b, res, n, yaw=0.0, hw=256):
+    """(b, res²·n, 3) points of res² rays from a camera turned `yaw` off
+    the mean pose, n samples each between the renderer's bounds, laid out
+    (res, res, n); planes (b, 3, hw, hw, ·) cover the unit box."""
+    from hfa_gp_tpu_torch.core import camera
+    label = camera.flip_yz_label(camera.sample_camera_label(
+        None, mode=None, horizontal_mean=np.pi / 2 + yaw))
+    c2w, intr = camera.unpack_label(label.repeat(b, 1))
+    o, d = camera.generate_rays(c2w, intr, res)
+    depths = torch.linspace(2.25, 3.3, n)[None, None, :, None]
+    return (o[:, :, None] + depths * d[:, :, None]).reshape(b, -1, 3) \
+        .contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [True, False])
+@pytest.mark.parametrize("c", [8, 30, 32, 48])
+def test_sampler_backward_kernel_on_rays_matches_plain(cuda, c, layout):
+    """Camera rays at batch 3 with tiles cut by the layout's edge (13 x 13
+    rays of 7 samples), with the layout (the sorted path at C 8 and 32)
+    and without it (the direct pass at C 30 and 48 either way)."""
+    pts = _camera_points(3, 13, 7).to(cuda)
+    shape = (3, 3, 64, 64, c)
+    g = torch.from_numpy(np.random.default_rng(c).standard_normal(
+        (3, pts.shape[1], c)).astype(np.float32)).to(cuda)
+    n = triplane.LAUNCHES_BWD
+    got = triplane.sample_mean_backward(g, shape, pts, 1.0,
+                                        (13, 13, 7) if layout else None)
+    torch.cuda.synchronize()
+    assert triplane.LAUNCHES_BWD == n + 1
+    want = triplane.sample_mean_backward_plain(g, shape, pts, 1.0)
+    _assert_grad_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["grazing", "shuffled", "off-plane",
+                                  "non-square"])
+def test_sampler_backward_kernel_where_boxes_overflow(cuda, case):
+    """Tiles whose boxes overflow the sorted path's buckets (a camera
+    turned 1.3 rad at 256² planes; shuffled points under a layout that is
+    not theirs), points mostly off the planes, and 48 x 40 planes."""
+    pts = _camera_points(2, 48, 24, yaw=1.3 if case == "grazing" else 0.0)
+    hw = (48, 40) if case == "non-square" else (256, 256)
+    if case == "shuffled":
+        pts = pts[:, torch.randperm(pts.shape[1],
+                                    generator=torch.Generator().manual_seed(0))]
+    elif case == "off-plane":
+        pts = (torch.rand(pts.shape, generator=torch.Generator()
+                          .manual_seed(1)) - 0.5) * 3.0
+    pts = pts.contiguous().to(cuda)
+    shape = (2, 3, *hw, 32)
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, pts.shape[1], 32)).astype(np.float32)).to(cuda)
+    got = triplane.sample_mean_backward(g, shape, pts, 1.0, (48, 48, 24))
+    torch.cuda.synchronize()
+    want = triplane.sample_mean_backward_plain(g, shape, pts, 1.0)
+    _assert_grad_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_sampler_backward_probe_whole_variant_matches_the_kernel(cuda):
+    """The probe's whole variant is the kernel's template with every stage
+    on, at the kernel's tile: the same gradient up to the atomics' order;
+    every variant launches."""
+    from hfa_gp_tpu_torch.tools import probe_sampler
+    pts = _camera_points(2, 32, 12).to(cuda)
+    shape = (2, 3, 64, 64, 32)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, pts.shape[1], 32)).astype(np.float32)).to(cuda)
+    want = triplane.sample_mean_backward(g, shape, pts, 1.0, (32, 32, 12))
+    got = probe_sampler.probe_backward(g, shape, pts, 1.0, (32, 32, 12))
+    _assert_grad_close(got.cpu().numpy(), want.cpu().numpy())
+    n = probe_sampler.LAUNCHES_BWD
+    for v in probe_sampler.BWD_VARIANTS.values():
+        probe_sampler.probe_backward(g, shape, pts, 1.0, (32, 32, 12), v)
+    torch.cuda.synchronize()
+    assert probe_sampler.LAUNCHES_BWD == n + len(probe_sampler.BWD_VARIANTS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [3, 32, 35])
+@pytest.mark.parametrize("n", [2, 31, 32, 33, 48, 96, 200])
+def test_marcher_kernel_fast_and_general_paths_match_plain(cuda, n, c):
+    """The warp-scan path (C 32) at sample counts around its chunks of 32
+    and the general path (C 3, 35)."""
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(16, r=21, n=n, c=c))
+    got = raymarch.ray_march(colors, dens, depths)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, raymarch.ray_march_plain(colors, dens, depths)):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 35])
+def test_marcher_kernel_on_empty_and_opaque_rays(cuda, c):
+    """Rays whose density is so low that every weight is 0 (Σw = 0, the
+    depth's max(·, 1e-10)), and rays so dense that the transmittance
+    underflows to 0 after a few samples."""
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(17, r=9, n=96, c=c))
+    dens[:, :4] = -300.0
+    dens[:, 4:] = 300.0
+    got = raymarch.ray_march(colors, dens, depths)
+    torch.cuda.synchronize()
+    want = raymarch.ray_march_plain(colors, dens, depths)
+    assert float(want[2][:, :4].abs().max()) == 0.0
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)

@@ -190,6 +190,29 @@ def test_render_rays_matches_jax(fine):
     assert float(np.asarray(want[2]).max()) > 0.1     # rays hit something
 
 
+def test_render_rays_passes_the_ray_grid_and_changes_nothing(monkeypatch):
+    """`ray_grid` reaches the sampler as the layout (res, res, n) of each
+    pass and, on the CPU, gives exactly the result without it."""
+    planes, dp, o, d = _render_inputs()
+    tcfg = torch_small_config("stratified").render
+    want = trnd.render_rays(convert.from_jax(dp), tcfg, _t(planes), _t(o),
+                            _t(d))
+    seen = []
+    sample_mean = trnd.triplane.sample_mean
+
+    def spy(*a, **kw):
+        seen.append(kw.get("layout"))
+        return sample_mean(*a, **kw)
+
+    monkeypatch.setattr(trnd.triplane, "sample_mean", spy)
+    got = trnd.render_rays(convert.from_jax(dp), tcfg, _t(planes), _t(o),
+                           _t(d), ray_grid=(16, 16))
+    assert seen == [(16, 16, tcfg.depth_resolution),
+                    (16, 16, tcfg.depth_resolution_importance)]
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("fine", ["global", "stratified"])
 def test_render_rays_gradients_match_jax(fine):
     """d(scalar of all three outputs)/d(planes, decoder params) against

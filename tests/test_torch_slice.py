@@ -253,7 +253,7 @@ def test_port_imports_no_jax():
         "'models.arcface.iresnet', 'models.arcface.registry', "
         "'models.arcface.convert', 'train.arcface', 'cli.train_arcface', "
         "'utils.observability', 'tools.probe_sampler', "
-        "'tools.profile_arcface'):\n"
+        "'tools.profile_arcface', 'tools.profile_reenact'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
