@@ -6,7 +6,8 @@
 Phases, each printed as it runs; any failure exits non-zero before the
 result line:
   1. the card (`nvidia-smi` name and power limit) and the torch/CUDA versions;
-  2. the build of the CUDA kernels from `hfa_gp_tpu_torch/csrc`, timed;
+  2. the build of the CUDA kernels from `hfa_gp_tpu_torch/csrc`, timed,
+     with ptxas's registers (the marcher backward's two paths by name);
   3. each kernel (sampler and marcher, forward and backward; the flash-CE
      statistics, forward and backward; the sampler's ablation probe)
      against its plain PyTorch version on the card, at the main paths'
@@ -17,9 +18,13 @@ result line:
      backward at batch 2 and 8 with the points' layout, without it and on
      shuffled points, on its general paths (C 8, 48, 30, a grazing camera,
      off-plane points), and its ablation (a time per variant); the marcher
-     at N 96 and 48; the flash-CE kernels also at a batch above one group
-     of rows with ragged class and depth counts, d w bit for bit across
-     two launches, and the backward's ablation (a time per variant);
+     at N 96 and 48; its backward against autograd of the plain march at
+     N 96 and 48 under the cotangents of rgb alone, of all three outputs
+     and of none, and on its other routes (C 3, 48, 130, N 1025, and
+     N 2000 with its scratch buffer); the flash-CE kernels also at a batch
+     above one group of rows with ragged class and depth counts, d w bit
+     for bit across two launches, and the backward's ablation (a time per
+     variant);
   4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
      dataset: 4 PNGs of 512², a video, finite frames, and each forward
@@ -55,7 +60,25 @@ result line:
      tools.probe_sampler.main`: the forward's full variant equal to the
      sampler bit for bit, and a time per variant; with `--backward` the
      backward's whole variant held to the kernel, a time per variant and
-     per tile.
+     per tile;
+ 14. the 3DMM-driven training path through `hfa_gp_tpu_torch.cli.
+     train_3dmm.main` at full width, batch 2, on a synthetic dataset with
+     expressions: 4 steps across --tune_iter, finite losses, the generator
+     untouched before tune_iter and changed after, display PNGs,
+     checkpoints, the four kernels' launch counts (one marcher backward a
+     step); then `run_recon_video_3dmm.main --model_path --fix_cam`;
+ 15. the audio-driven training path through `hfa_gp_tpu_torch.cli.
+     train_audio.main`, the same way, 4 steps with --nosmo_iters 2: the
+     AudioAttNet unchanged in the plain phase and changed after, its Adam
+     state cleared exactly once (the step counts in the checkpoints), the
+     same launch counts; then `run_recon_video_audio.main --smooth
+     --model_path`;
+ 16. one audio step in its smooth phase, loss and gradients at full width,
+     batch 1, card (kernels) against CPU (plain versions), from the same
+     seeded params, at 8's tolerances (a gradient that misses them at a
+     LeakyReLU kink held in the L2 norm, as 11 does);
+ 17. steady-state 3DMM and audio training steps/s at batch 2, and the
+     peak device memory (printed, not asserted).
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step. The line before the last is a
@@ -191,6 +214,26 @@ def phase_build() -> None:
     for line in log.get("ptxas", "").splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"    {line.strip()}", flush=True)
+    ptxas = log.get("ptxas", "")
+    print("    K4' registers: fast path (ray_march_bwd_warp_kernel) "
+          f"{kernel_registers(ptxas, 'ray_march_bwd_warp_kernel')}, general "
+          f"path (ray_march_bwd_kernel) "
+          f"{kernel_registers(ptxas, 'ray_march_bwd_kernel')}", flush=True)
+
+
+def kernel_registers(ptxas: str, kernel: str) -> int | None:
+    """ptxas -v's register count of the kernel named `kernel` (its mangled
+    name holds <len><name>E)."""
+    import re
+    lines = ptxas.splitlines()
+    tag = f"{len(kernel)}{kernel}E"
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and tag in line:
+            for after in lines[i + 1:]:
+                m = re.search(r"Used (\d+) registers", after)
+                if m:
+                    return int(m.group(1))
+    return None
 
 
 # how main_path_points lie: 128 x 128 rays, row-major, of 48 samples each
@@ -560,38 +603,135 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     n = 96
     del march_in
 
-    # -- marcher backward: all three cotangents
-    cots = [torch.randn(x.shape, generator=g).to(dev) for x in want]
-    got = raymarch.ray_march_backward(colors, dens, depths, *cots)
-    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
-    torch.cuda.synchronize()
-    err, rel = 0.0, 0.0
-    for x, y in zip(got, want):
-        e, r_ = rel_err(x, y)
-        err, rel = max(err, e), max(rel, r_)
-    print(f"[3] marcher backward kernel vs plain: max abs err {err:.3e}, "
-          f"{rel:.3e} of the gradient's scale (bound {BWD_RTOL:g}; "
-          f"cotangents of rgb, depth and weights)", flush=True)
-    if not rel <= BWD_RTOL:
-        fail(f"marcher backward kernel disagrees with its plain version: "
-             f"{rel} of the gradient's scale")
-    ms = cuda_time_ms(lambda: raymarch.ray_march_backward(colors, dens,
-                                                          depths, *cots))
-    plain_ms = cuda_time_ms(lambda: raymarch.ray_march_backward_plain(
-        colors, dens, depths, *cots))
-    # per sample and channel 3 operations (dot product, d colors), per
-    # midpoint ~40 of the two walks; no single PyTorch call computes it
-    results.append(kernel_entry(
-        "ray_marcher_bwd", "hfa_gp_tpu_torch/csrc/raymarch_bwd.cu",
-        "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
-        nbytes(colors, dens, depths, *cots, *got),
-        b * r * (n * 3 * c + (n - 1) * 40)))
-    results[-1]["note"] = ("the TPU kernel has no backward: the JAX package "
-                           "differentiates renderer.ray_march instead")
-    del colors, dens, depths, cots, got, want
+    # -- marcher backward: the fast path at N 96 and 48 under each mix of
+    # cotangents, then its general path
+    results.append(phase_marcher_backward(dev, g, (colors, dens, depths),
+                                          want))
+    del colors, dens, depths, want
+    phase_marcher_bwd_general_paths(dev, g)
     results += phase_kernels_flash_ce(dev, g)
     results.append(phase_kernels_probe(dev))
     return results
+
+
+# K4′'s cotangent mixes: rgb's alone (what training passes), all three
+# (rgb, unclipped depth, weights), none
+MARCH_COTANGENTS = {"rgb": (True, False, False), "all": (True, True, True),
+                    "none": (False, False, False)}
+
+
+def march_inputs(dev, g, b: int, r: int, n: int, c: int):
+    colors = torch.rand((b, r, n, c), generator=g).to(dev)
+    dens = (torch.randn((b, r, n, 1), generator=g) * 3.0).to(dev)
+    depths = torch.sort(2.25 + 1.05 * torch.rand((b, r, n, 1), generator=g),
+                        dim=2).values.to(dev)
+    return colors, dens, depths
+
+
+def marcher_bwd_check(dev, g, inputs, outs, what: str) -> tuple:
+    """K4′ against autograd of the plain march (`ray_march_backward_plain`)
+    under each cotangent mix; → (max abs err, its largest share of the
+    gradient's scale, the cotangents by mix)."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch
+    cots_all = [torch.randn(x.shape, generator=g).to(dev) for x in outs]
+    err, rel, cots = 0.0, 0.0, {}
+    for mix, used in MARCH_COTANGENTS.items():
+        cots[mix] = [ct if u else None for ct, u in zip(cots_all, used)]
+        got = raymarch.ray_march_backward(*inputs, *cots[mix])
+        want = raymarch.ray_march_backward_plain(*inputs, *cots[mix])
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            if not bool(torch.isfinite(x).all()):
+                fail(f"marcher backward kernel, {what}, cotangents {mix}: "
+                     f"not finite")
+            if mix == "none":
+                if x.abs().max().item() != 0.0:
+                    fail(f"marcher backward kernel, {what}: no cotangent "
+                         f"but a gradient")
+                continue
+            e, r_ = rel_err(x, y)
+            err, rel = max(err, e), max(rel, r_)
+        del got, want
+    if not rel <= BWD_RTOL:
+        fail(f"marcher backward kernel disagrees with its plain version "
+             f"({what}): {rel} of the gradient's scale")
+    return err, rel, cots
+
+
+def phase_marcher_backward(dev, g, inputs, outs) -> dict:
+    """K4′ at the unified pass's (2, 16384, 96, 32) and the coarse pass's
+    N 48: checked under each cotangent mix, timed under all three and
+    under rgb's alone."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch
+    colors, dens, depths = inputs
+    b, r, n, c = colors.shape
+    err, rel, cots = marcher_bwd_check(dev, g, inputs, outs, "N 96")
+    inputs48 = march_inputs(dev, g, b, r, 48, c)
+    with torch.no_grad():
+        outs48 = raymarch.ray_march_plain(*inputs48)
+    err48, rel48, cots48 = marcher_bwd_check(dev, g, inputs48, outs48,
+                                             "N 48")
+    print(f"[3] marcher backward kernel vs autograd of the plain version, "
+          f"fast path, cotangents of rgb / all three / none: max abs err "
+          f"{max(err, err48):.3e}, {max(rel, rel48):.3e} of the gradient's "
+          f"scale (bound {BWD_RTOL:g}; colors {tuple(colors.shape)} and N "
+          f"48)", flush=True)
+
+    def run(inp, cts):
+        return lambda: raymarch.ray_march_backward(*inp, *cts)
+
+    ms = cuda_time_ms(run(inputs, cots["all"]))
+    ms_rgb = cuda_time_ms(run(inputs, cots["rgb"]))
+    ms48 = cuda_time_ms(run(inputs48, cots48["rgb"]))
+    plain_ms = cuda_time_ms(lambda: raymarch.ray_march_backward_plain(
+        *inputs, *cots["all"]))
+    got = raymarch.ray_march_backward(*inputs, *cots["all"])
+    # per sample and channel 3 operations (dot product, d colors), per
+    # midpoint ~60 of the scans; no single PyTorch call computes it
+    entry = kernel_entry(
+        "ray_marcher_bwd", "hfa_gp_tpu_torch/csrc/raymarch_bwd.cu",
+        "hfa_gp_tpu/core/pallas/raymarch.py:27", err, ms, plain_ms, None,
+        nbytes(colors, dens, depths, *cots["all"], *got),
+        b * r * (n * 3 * c + (n - 1) * 60))
+    rgb_bytes = nbytes(colors, dens, depths, cots["rgb"][0], *got)
+    b48 = bound(nbytes(*inputs48, cots48["rgb"][0], *inputs48[:2]),
+                b * r * (48 * 3 * c + 47 * 60))["bound_ms"]
+    entry.update({"note": "the TPU kernel has no backward: the JAX package "
+                          "differentiates renderer.ray_march instead",
+                  "ms_rgb_only": ms_rgb,
+                  "bound_ms_rgb_only": bound(rgb_bytes, 0)["bound_ms"],
+                  "ms_n48_rgb_only": ms48, "bound_ms_n48_rgb_only": b48,
+                  "max_abs_err_n48": err48})
+    print(f"    ray_marcher_bwd with rgb's cotangent alone (training): "
+          f"{ms_rgb:.4f} ms (bound {entry['bound_ms_rgb_only']:.4f}); at N "
+          f"48 {ms48:.4f} ms (bound {b48:.4f}); {ms / entry['bound_ms']:.2f} "
+          f"x its bound with all three", flush=True)
+    return entry
+
+
+def phase_marcher_bwd_general_paths(dev, g) -> None:
+    """K4′ on the other routes: C 3 (a lane a channel), C 48 (the fast
+    path with 16 lanes a row, a quarter of them idle), C 130 (over the
+    fast path's 128), N 1025 (over its 1024) and N 2000 (the general
+    path's arrays in the scratch buffer: 7·N floats a warp exceed 48 KB),
+    each under the three cotangent mixes."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch
+    worst, cases = 0.0, []
+    for r, n, c in ((4096, 96, 3), (4096, 96, 48), (512, 48, 130),
+                    (64, 1025, 32), (256, 2000, 32), (64, 2000, 3)):
+        inputs = march_inputs(dev, g, 1, r, n, c)
+        with torch.no_grad():
+            outs = raymarch.ray_march_plain(*inputs)
+        worst = max(worst, marcher_bwd_check(dev, g, inputs, outs,
+                                             f"N {n}, C {c}")[1])
+        cases.append(f"N {n} C {c}"
+                     + (" (scratch)" if raymarch.scratch_warps_for(r, n)
+                        else ""))
+        del inputs, outs
+    print(f"[3] marcher backward kernel vs plain on its other routes "
+          f"({', '.join(cases)}; cotangents of rgb / all three / none): "
+          f"{worst:.3e} of the gradient's scale (bound {BWD_RTOL:g})",
+          flush=True)
 
 
 def ce_inputs(dev, g, b: int, d: int, c: int):
@@ -1439,6 +1579,353 @@ def phase_probe_path() -> dict[str, int]:
     return launches
 
 
+def write_expressions(root: str, n: int, split: str) -> None:
+    """{root}/nerface_dataset/person_3/transforms_{split}.json: a seeded
+    76-d expression vector for each of write_dataset's n frames."""
+    rng = np.random.default_rng(SEED + 3 + (split == "train"))
+    frames = [{"file_path": f"./images/f_{i:04d}",
+               "expression": rng.standard_normal(76).tolist()}
+              for i in range(n)]
+    with open(os.path.join(root, "nerface_dataset", "person_3",
+                           f"transforms_{split}.json"), "w") as f:
+        json.dump({"frames": frames}, f)
+
+
+def write_audio_dataset(root: str, n_train: int = 6, n_val: int = 4,
+                        size: int = 256) -> None:
+    """{root}/ad_dataset/obama (the layout of tests/fixtures.py with
+    audio=True): `<i>.jpg` frames and labels of cameras around the mean
+    pose in train/ and test/, transforms_{train,val}.json with image and
+    audio ids, and aud.npy of seeded (n_train + n_val, 16, 29) features."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.core import camera
+    person = os.path.join(root, "ad_dataset", "obama")
+    rng = np.random.default_rng(SEED + 5)
+    for split, sub, n in (("train", "train", n_train),
+                          ("val", "test", n_val)):
+        d = os.path.join(person, sub, "cropped_images")
+        os.makedirs(d)
+        labels = []
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 255, (size, size, 3), np.uint8),
+                            "RGB").save(os.path.join(d, f"{i}.jpg"))
+            label = camera.flip_yz_label(camera.sample_camera_label(
+                None, mode=None, horizontal_mean=np.pi / 2 + 0.05 * (i - 2)))
+            labels.append([f"{i}.png", label[0].tolist()])
+        with open(os.path.join(d, "test.json"), "w") as f:
+            json.dump({"labels": labels}, f)
+        with open(os.path.join(person, f"transforms_{split}.json"), "w") as f:
+            json.dump({"frames": [{"img_id": i, "aud_id": i}
+                                  for i in range(n)]}, f)
+    np.save(os.path.join(person, "aud.npy"), rng.standard_normal(
+        (n_train + n_val, 16, 29)).astype(np.float32))
+
+
+def max_change(init, path: str, tops) -> dict[str, float]:
+    """Max abs change of each top-level subtree's params in the checkpoint
+    file `path` against `init`."""
+    from hfa_gp_tpu_torch.train import checkpoint as ckpt
+    got = ckpt.load_params(path).state_dict()
+    return {top: max((v - got[k]).abs().max().item()
+                     for k, v in init.state_dict().items()
+                     if k.startswith(top + "."))
+            for top in tops}
+
+
+def check_pngs(what: str, pattern: str, n: int) -> None:
+    from PIL import Image
+    pngs = sorted(glob.glob(pattern))
+    sizes = {Image.open(p).size for p in pngs}
+    print(f"    {what}: {len(pngs)} PNGs {sorted(sizes)}", flush=True)
+    if len(pngs) != n or sizes != {(512, 512)}:
+        fail(f"{what}: {len(pngs)} PNGs {sizes}, expected {n} of 512²")
+
+
+def train_losses(what: str, base: str, steps: int) -> list:
+    with open(os.path.join(base, "log", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    losses = [(r["l2_loss"], r["lpips_loss"]) for r in recs]
+    if len(recs) != steps or not np.isfinite(np.array(losses)).all():
+        fail(f"{what}: expected {steps} finite loss records, got {losses}")
+    return [(round(l2, 5), round(lp, 5)) for l2, lp in losses]
+
+
+def phase_3dmm_path(tmp: str) -> dict[str, int]:
+    """[14] train_3dmm.main at full width, batch 2, 4 steps across
+    --tune_iter 2, then run_recon_video_3dmm.main --model_path --fix_cam
+    on the checkpoint. Returns the training run's launch counts."""
+    from hfa_gp_tpu_torch.cli import run_recon_video_3dmm, train_3dmm
+    from hfa_gp_tpu_torch.models.avatar import heads
+    steps, tune_iter, batch = 4, 2, 2
+    write_dataset(tmp, 6, split="train")
+    write_dataset(tmp, 4, split="test2")
+    write_expressions(tmp, 6, "train")
+    write_expressions(tmp, 4, "test")
+    exp = os.path.join(tmp, "exps")
+    base = os.path.join(exp, "smoke3dmm")
+    args = train_3dmm.build_argparser().parse_args([
+        "--dataset_root", tmp, "--person", "person_3", "--size", "256",
+        "--batch_size", str(batch), "--exp_path", exp, "--exp_name",
+        "smoke3dmm", "--tune_iter", str(tune_iter), "--device", "cuda",
+        "--iter", str(steps), "--display_freq", str(steps), "--save_freq",
+        "2"])
+    reset_launches()
+    t0 = time.perf_counter()
+    train_3dmm.main(args)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    shown = train_losses("3DMM training", base, steps)
+    display = sorted(os.listdir(os.path.join(base, "display")))
+    ckpts = sorted(os.listdir(os.path.join(base, "checkpoint")))
+    print(f"[14] 3DMM training path: {steps} steps at batch {batch} in "
+          f"{seconds:.2f} s (init, display and checkpoints included), "
+          f"(l2, lpips) per step {shown}, display {display}, checkpoints "
+          f"{ckpts}, launches {launches}", flush=True)
+    if display != [f"{steps - 1}recon.png", f"{steps - 1}source.png"]:
+        fail(f"3DMM display {display}")
+    if ckpts != ["000001", "000003"]:
+        fail(f"3DMM checkpoints {ckpts}")
+    # per step the RGB step's launches; the display renders one test frame
+    n_fwd = 2 * steps + 2
+    expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
+                "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
+                "ray_marcher_bwd": steps}
+    if launches != expected:
+        fail(f"3DMM training launched {launches}, expected {expected}")
+    init = heads.init_avatar_3dmm(
+        torch.Generator().manual_seed(train_3dmm.SEED), heads.AvatarConfig())
+    moved = {c: max_change(init, os.path.join(base, "checkpoint", c),
+                           ("weights_mlp", "subspace", "generator"))
+             for c in ckpts}
+    print(f"    max abs change of the params against the seeded init: "
+          f"{moved}", flush=True)
+    if moved["000001"]["generator"] != 0.0 \
+            or not moved["000003"]["generator"] > 0.0 \
+            or not moved["000001"]["weights_mlp"] > 0.0:
+        fail(f"3DMM --tune_iter {tune_iter} not honoured: {moved}")
+
+    demo = os.path.join(tmp, "demo3dmm")
+    reset_launches()
+    run_recon_video_3dmm.main(run_recon_video_3dmm.build_argparser()
+                              .parse_args([
+                                  "--dataset_root", tmp, "--person",
+                                  "person_3", "--size", "256",
+                                  "--render_batch", "4", "--demo_dir", demo,
+                                  "--demo_name", "fix", "--fps", "4",
+                                  "--device", "cuda", "--fix_cam",
+                                  "--model_path",
+                                  os.path.join(base, "checkpoint",
+                                               "000003")]))
+    check_pngs(f"3DMM reenactment from the checkpoint, --fix_cam, launches "
+               f"{read_launches()}", os.path.join(demo, "fix", "*.png"), 4)
+    return launches
+
+
+def adam_counts(path: str) -> dict[str, set]:
+    """Adam step counts in an avatar checkpoint, by top-level subtree."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    names = list(state["params"])
+    out: dict[str, set] = {}
+    for i, st in state["optimizer"]["state"].items():
+        out.setdefault(names[i].split(".")[0], set()).add(int(st["step"]))
+    return out
+
+
+def phase_audio_path(tmp: str) -> dict[str, int]:
+    """[15] train_audio.main at full width, batch 2, 4 steps with
+    --nosmo_iters 2 and --tune_iter 2, then run_recon_video_audio.main
+    --smooth --model_path on the checkpoint. Returns the training run's
+    launch counts."""
+    from hfa_gp_tpu_torch.cli import run_recon_video_audio, train_audio
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import audio as audio_train
+    steps, nosmo, batch = 4, 2, 2
+    write_audio_dataset(tmp)
+    exp = os.path.join(tmp, "exps")
+    base = os.path.join(exp, "smokeaudio")
+    args = train_audio.build_argparser().parse_args([
+        "--dataset_root", tmp, "--dataset", "ad_dataset", "--person",
+        "obama", "--size", "256", "--batch_size", str(batch), "--exp_path",
+        exp, "--exp_name", "smokeaudio", "--tune_iter", "2", "--nosmo_iters",
+        str(nosmo), "--device", "cuda", "--iter", str(steps),
+        "--display_freq", str(steps), "--save_freq", "2"])
+    reset_launches()
+    t0 = time.perf_counter()
+    train_audio.main(args)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    shown = train_losses("audio training", base, steps)
+    display = sorted(os.listdir(os.path.join(base, "display")))
+    ckpts = sorted(os.listdir(os.path.join(base, "checkpoint")))
+    counts = {c: adam_counts(os.path.join(base, "checkpoint", c))
+              for c in ckpts}
+    print(f"[15] audio training path: {steps} steps at batch {batch} "
+          f"(--nosmo_iters {nosmo}) in {seconds:.2f} s, (l2, lpips) per step "
+          f"{shown}, display {display}, checkpoints {ckpts}, Adam counts "
+          f"{counts}, launches {launches}", flush=True)
+    if display != [f"{steps - 1}source.png"] or ckpts != ["000001",
+                                                          "000003"]:
+        fail(f"audio display {display}, checkpoints {ckpts}")
+    # the AudAtt optimizer cleared once, at the switch: 2 steps since
+    if counts["000001"] != {"model": {2}, "audnet": {2}, "audattnet": {2}} \
+            or counts["000003"] != {"model": {4}, "audnet": {4},
+                                    "audattnet": {steps - nosmo}}:
+        fail(f"the AudAtt optimizer was not reset exactly once: {counts}")
+    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+                "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
+                "ray_marcher_bwd": steps}
+    if launches != expected:
+        fail(f"audio training launched {launches}, expected {expected}")
+    init = audio_train.init_audio_params(
+        torch.Generator().manual_seed(train_audio.SEED), heads.AvatarConfig())
+    moved = {c: max_change(init, os.path.join(base, "checkpoint", c),
+                           ("audattnet", "audnet", "model"))
+             for c in ckpts}
+    print(f"    max abs change of the params against the seeded init: "
+          f"{moved}", flush=True)
+    if moved["000001"]["audattnet"] != 0.0 \
+            or not moved["000003"]["audattnet"] > 0.0 \
+            or not moved["000001"]["audnet"] > 0.0:
+        fail(f"AudioAttNet moved in the plain phase or not after: {moved}")
+
+    demo = os.path.join(tmp, "demoaudio")
+    reset_launches()
+    run_recon_video_audio.main(run_recon_video_audio.build_argparser()
+                               .parse_args([
+                                   "--dataset_root", tmp, "--dataset",
+                                   "ad_dataset", "--person", "obama",
+                                   "--size", "256", "--render_batch", "4",
+                                   "--demo_dir", demo, "--demo_name", "smo",
+                                   "--fps", "4", "--device", "cuda",
+                                   "--smooth", "--model_path",
+                                   os.path.join(base, "checkpoint",
+                                                "000003")]))
+    check_pngs(f"audio reenactment from the checkpoint, --smooth, launches "
+               f"{read_launches()}", os.path.join(demo, "smo", "*.png"), 4)
+    return launches
+
+
+def avatar_batch(dev: str, batch: int):
+    """The full-width config, seeded LPIPS params and a batch on `dev`."""
+    from hfa_gp_tpu_torch.models import lpips
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.utils.convert import ParamTree
+    cfg = heads.AvatarConfig()
+    lp = ParamTree(lpips.init_lpips(torch.Generator().manual_seed(SEED + 2))) \
+        .to(dev)
+    image, label = reference_inputs(cfg, batch)
+    return cfg, lp, image.to(dev), label.to(dev)
+
+
+def audio_setup(dev: str, batch: int):
+    """Seeded full-width audio params in a training state, LPIPS params, a
+    batch and its smoothing windows on `dev`."""
+    from hfa_gp_tpu_torch.train import audio as audio_train
+    from hfa_gp_tpu_torch.train.state import init_state
+    cfg, lp, image, label = avatar_batch(dev, batch)
+    params = audio_train.init_audio_params(
+        torch.Generator().manual_seed(SEED), cfg, dev)
+    win = torch.randn((batch, cfg.smo_size, cfg.win_size, 29),
+                      generator=torch.Generator().manual_seed(SEED + 4))
+    return cfg, init_state(params), lp, image, label, win.to(dev)
+
+
+def phase_audio_step_card_vs_cpu() -> None:
+    """[16] loss and every gradient of one audio step in its smooth phase,
+    card vs CPU, at [8]'s tolerances. LeakyReLU's derivative jumps from
+    0.2 to 1 at 0 (0.02 to 1 in the audio nets), so a gradient that misses
+    the entrywise bound is held as [11] holds PReLU's: 1e-2 in the L2 norm
+    and 1e-1 at its worst entry; the step says which ones needed it."""
+    from hfa_gp_tpu_torch.train import audio as audio_train
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, lp, image, label, win = audio_setup(dev, 1)
+        t0 = time.perf_counter()
+        loss, _ = audio_train.loss_fn(state.params, lp, cfg, image, label,
+                                      win, True)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in state.params.named_parameters()
+                 if p.grad is not None}
+        out[dev] = (loss.item(), grads, time.perf_counter() - t0)
+        del state, lp, loss
+    (l_gpu, g_gpu, t_gpu), (l_cpu, g_cpu, t_cpu) = out["cuda"], out["cpu"]
+    if sorted(g_gpu) != sorted(g_cpu):
+        fail("card and CPU give gradients to different parameters")
+    if not all(torch.isfinite(g).all() for g in g_gpu.values()):
+        fail("non-finite gradient on the card")
+    rels, kinks = {}, {}
+    for n, want in g_cpu.items():
+        if want.abs().max() == 0:
+            continue
+        rels[n] = rel_err(g_gpu[n], want)[1]
+        if rels[n] > STEP_GRAD_RTOL:
+            kinks[n] = ((g_gpu[n] - want).norm() / want.norm()).item()
+    worst = sorted(rels, key=rels.get)[-3:][::-1]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"[16] one audio step (smooth phase) at full width, batch 1, card "
+          f"vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {loss_rel:.3e}, "
+          f"bound {STEP_LOSS_RTOL:g}); {len(rels)} gradients, worst max abs "
+          f"diff over the gradient's scale "
+          f"{[(n, float(f'{rels[n]:.3e}')) for n in worst]} (bound "
+          f"{STEP_GRAD_RTOL:g}); held in the L2 norm (bound "
+          f"{ARC_GRAD_L2_RTOL:g}, worst entry {ARC_GRAD_RTOL:g}): "
+          f"{ {n: float(f'{v:.3e}') for n, v in kinks.items()} }; card "
+          f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s", flush=True)
+    if not loss_rel <= STEP_LOSS_RTOL:
+        fail(f"card audio loss {l_gpu} differs from the CPU loss {l_cpu}")
+    for n, l2 in kinks.items():
+        if not (l2 <= ARC_GRAD_L2_RTOL and rels[n] <= ARC_GRAD_RTOL):
+            fail(f"card gradient of {n} differs from the CPU's by "
+                 f"{rels[n]} of its scale, {l2} in the L2 norm")
+
+
+def phase_3dmm_audio_throughput() -> None:
+    """[17] steady-state 3DMM and audio (smooth phase) training steps/s at
+    batch 2, generator unfrozen, and peak device memory (printed, not
+    asserted)."""
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import audio as audio_train
+    from hfa_gp_tpu_torch.train import t3dmm
+    from hfa_gp_tpu_torch.train.state import init_state
+    batch, iters, warmup = 2, 5, 2
+
+    def steps(step) -> float:
+        times = []
+        for i in range(warmup + iters):
+            if i == warmup:
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times[warmup:])) * 1e3
+
+    cfg, lp, image, label = avatar_batch("cuda", batch)
+    st = init_state(heads.init_avatar_3dmm(
+        torch.Generator().manual_seed(SEED), cfg, "cuda"))
+    coeffs = torch.randn((batch, cfg.params_len),
+                         generator=torch.Generator().manual_seed(SEED + 6)) \
+        .cuda()
+    ms = steps(lambda: t3dmm.train_step(st, lp, cfg, image, label, coeffs, 0))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[17] 3DMM training, batch {batch}, generator unfrozen: {ms:.2f} "
+          f"ms per step (median of {iters}), {1e3 / ms:.3f} steps/s, peak "
+          f"device memory {peak / 2**30:.3f} GiB", flush=True)
+    del st
+    cfg, st, lp, image, label, win = audio_setup("cuda", batch)
+    ms = steps(lambda: audio_train.train_step(st, lp, cfg, image, label,
+                                              win, True, 0))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"     audio training (smooth phase), batch {batch}, generator "
+          f"unfrozen: {ms:.2f} ms per step (median of {iters}), "
+          f"{1e3 / ms:.3f} steps/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1466,6 +1953,12 @@ def main() -> None:
     phase_arcface_card_vs_cpu()
     phase_arcface_throughput()
     probe_launches = phase_probe_path()
+    with tempfile.TemporaryDirectory() as tmp:
+        t3dmm_launches = phase_3dmm_path(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_launches = phase_audio_path(tmp)
+    phase_audio_step_card_vs_cpu()
+    phase_3dmm_audio_throughput()
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
@@ -1479,6 +1972,8 @@ def main() -> None:
         else:
             k["launches"] = train_launches[k["name"]]
             k["launches_reenact"] = reenact_launches[k["name"]]
+            k["launches_3dmm"] = t3dmm_launches[k["name"]]
+            k["launches_audio"] = audio_launches[k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
     # what each kernel loses on a unit of each path: launches x (ms - bound)

@@ -1,11 +1,12 @@
 """Shared CLI plumbing of the port (counterpart of hfa_gp_tpu/cli/common.py):
-the flags of `train_rgb` and `run_recon_video_rgb` (the reference's names
-and defaults), config construction, weight loading, experiment directories
-and video assembly.
+the flags of the avatar CLIs (the reference's names and defaults), config
+construction, weight loading, experiment directories and video assembly.
 
-Flags of the JAX CLI that select TPU machinery are accepted for
-command-line parity. Where one asks for something this port does not do,
-`avatar_config` raises; none is ignored silently.
+Every flag of the JAX CLI is accepted, so reference command lines port
+over unchanged. `--addr` and `--port` are ignored, as in the JAX CLI. Where
+another flag asks for something this port does not do (the second
+person's subspace, several processes, TPU machinery), `avatar_config`
+raises; none is ignored silently.
 """
 
 from __future__ import annotations
@@ -53,6 +54,18 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--use_softmax", action="store_true", default=False)
     p.add_argument("--person_2", type=str, default=None,
                    help="second-person subspace (not ported: raises)")
+    p.add_argument("--run_id", type=str, default="nerface2")
+    p.add_argument("--run_id_2", type=str, default=None)
+    p.add_argument("--emb_dir", type=str, default="./PTI/embeddings/")
+    p.add_argument("--init", action="store_true", default=False,
+                   help="person-2 bases from PTI pivots (not ported: "
+                        "raises with --run_id_2)")
+    p.add_argument("--same_bases", action="store_true", default=False,
+                   help="person 2 shares the bases (not ported: raises)")
+    # the reference's DDP rendezvous: accepted and ignored, as in JAX
+    p.add_argument("--addr", type=str, default="localhost")
+    p.add_argument("--port", type=str, default="12345")
+    add_distributed_flags(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; CUDA runs the hand-written kernels")
     # accepted for parity with the JAX CLI; see avatar_config
@@ -71,8 +84,22 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="profiler trace (not ported: raises)")
 
 
+def add_distributed_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's multi-host flags (hfa_gp_tpu/parallel/distributed.py),
+    accepted for command-line parity; more than one process raises
+    (`single_process`)."""
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 (not ported: raises)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total process count (only 1 is supported)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank")
+
+
 def avatar_config(args) -> AvatarConfig:
-    """AvatarConfig for the flags; raises on a flag the port cannot honour."""
+    """AvatarConfig for the flags; raises on a flag the port cannot honour.
+    The avatar CLIs call it before anything else."""
+    single_process(args)
     if args.bf16:
         raise NotImplementedError("--bf16: the port runs fp32 only")
     if args.n_model != 1:
@@ -86,17 +113,29 @@ def avatar_config(args) -> AvatarConfig:
     if args.person_2 is not None:
         raise NotImplementedError("--person_2: the second-person subspace "
                                   "is not ported")
+    if args.same_bases:
+        raise NotImplementedError("--same_bases: the second-person subspace "
+                                  "is not ported")
+    if args.init and args.run_id_2 is not None:
+        raise NotImplementedError("--init with --run_id_2: the second "
+                                  "person's PTI bases are not ported")
     return AvatarConfig(size=args.size, dim=args.latent_dim_style,
                         dim_shape=args.latent_dim_shape,
                         use_softmax=args.use_softmax, out_pose=args.out_pose,
                         eg3d=EG3DConfig())
 
 
-def single_process() -> None:
-    """The port trains in one process on one device."""
+def single_process(args) -> None:
+    """The port runs in one process on one device: raise on WORLD_SIZE > 1,
+    a coordinator or more than one process."""
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            "WORLD_SIZE > 1: training over several processes is not ported")
+            "WORLD_SIZE > 1: running over several processes is not ported")
+    if args.coordinator_address is not None \
+            or (args.num_processes or 1) > 1:
+        raise NotImplementedError("--coordinator_address/--num_processes: "
+                                  "running over several processes is not "
+                                  "ported")
 
 
 def load_generator_weights(args) -> dict | None:

@@ -72,10 +72,10 @@ def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
 
 
 def main(args) -> None:
+    cfg = common.avatar_config(args)
     device = torch.device(args.device)
     if device.type == "cuda":
         common.fp32_backends()
-    cfg = common.avatar_config(args)
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
                            person=args.person, ds_path=args.ds_path,

@@ -86,9 +86,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", type=int, default=10,
                    help="verification frequency in steps")
     # the JAX CLI's multi-host flags, accepted for command-line parity
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
+    common.add_distributed_flags(p)
     return p
 
 
@@ -109,11 +107,7 @@ def check_supported(args) -> None:
     if args.n_model != 1:
         raise NotImplementedError("--n_model > 1: class sharding over "
                                   "several devices is not ported")
-    if args.coordinator_address is not None \
-            or (args.num_processes or 1) > 1:
-        raise NotImplementedError("training over several processes is not "
-                                  "ported")
-    common.single_process()
+    common.single_process(args)
 
 
 def synth_batch(batch_size: int, num_classes: int,

@@ -137,7 +137,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_triplane_mean_bwd.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i,
                                           p]
     lib.hfa_triplane_mean_bwd.restype = ctypes.c_int
-    lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.hfa_ray_march_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                      p]
     lib.hfa_ray_march_bwd.restype = ctypes.c_int
     lib.hfa_flash_ce_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i64, f, i, p]
     lib.hfa_flash_ce_fwd.restype = ctypes.c_int

@@ -26,8 +26,11 @@ from . import build
 LAUNCHES = 0
 LAUNCHES_BWD = 0
 
-# The backward kernel keeps 7·N floats a warp in 48 KB of shared memory.
-MAX_SAMPLES_BWD = 48 * 1024 // (7 * 4)
+# The backward kernel's general path keeps 7·N floats a warp in shared
+# memory while they fit in 48 KB; beyond, in a scratch buffer of that many
+# floats for each of up to SCRATCH_WARPS warps, which stride over the rays.
+GENERAL_SHARED_SAMPLES = 48 * 1024 // (7 * 4)
+SCRATCH_WARPS = 1024
 
 
 def _march_unclipped(colors: torch.Tensor, densities: torch.Tensor,
@@ -106,6 +109,40 @@ def _check_cuda_inputs(fn: str, tensors: dict) -> None:
         raise ValueError(f"{fn}: B·R exceeds the kernel's int32 range")
 
 
+def _check_backward_inputs(colors, densities, depths, g_rgb, g_depth,
+                           g_weights) -> list:
+    """`_check_cuda_inputs` for the backward, with the cotangents' shapes;
+    → the cotangents in the kernel's order (None: zeros)."""
+    b, r, n, c = colors.shape
+    cots = {"g_rgb": (g_rgb, (b, r, c)), "g_depth": (g_depth, (b, r, 1)),
+            "g_weights": (g_weights, (b, r, max(n - 1, 0), 1))}
+    for name, (g, shape) in cots.items():
+        if g is not None and g.shape != shape:
+            raise ValueError(f"ray_march_backward: {name} {tuple(g.shape)}, "
+                             f"expected {shape}")
+    _check_cuda_inputs("ray_march_backward", {
+        "colors": colors, "densities": densities, "depths": depths,
+        **{k: g for k, (g, _) in cots.items() if g is not None}})
+    return [g for g, _ in cots.values()]
+
+
+def scratch_warps_for(rays: int, n: int) -> int:
+    """Warps of the backward kernel's scratch buffer for `rays` rays of n
+    samples: 0 while its general path's 7·n floats a warp fit in shared
+    memory (the fast path, N ≤ 1024, never needs one), else up to
+    SCRATCH_WARPS, a multiple of the kernel's 8 warps a block."""
+    if n <= GENERAL_SHARED_SAMPLES:
+        return 0
+    return min(SCRATCH_WARPS, -(-rays // 8) * 8)
+
+
+def add_white_back(rgb: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """rgb + 2·(1 − Σw): `ray_march_plain(..., white_back=True)`'s white
+    background on the outputs of a march without it (rgb already 2·x − 1,
+    weights (B, R, N−1, 1))."""
+    return rgb + 2 * (1 - weights.sum(dim=2))
+
+
 def ray_march_backward(colors: torch.Tensor, densities: torch.Tensor,
                        depths: torch.Tensor,
                        g_rgb: torch.Tensor | None = None,
@@ -121,28 +158,23 @@ def ray_march_backward(colors: torch.Tensor, densities: torch.Tensor,
         raise ValueError(f"ray_march_backward: unsupported device "
                          f"{colors.device}")
     b, r, n, c = colors.shape
-    cots = {"g_rgb": (g_rgb, (b, r, c)), "g_depth": (g_depth, (b, r, 1)),
-            "g_weights": (g_weights, (b, r, max(n - 1, 0), 1))}
-    for name, (g, shape) in cots.items():
-        if g is not None and g.shape != shape:
-            raise ValueError(f"ray_march_backward: {name} {tuple(g.shape)}, "
-                             f"expected {shape}")
-    _check_cuda_inputs("ray_march_backward", {
-        "colors": colors, "densities": densities, "depths": depths,
-        **{k: g for k, (g, _) in cots.items() if g is not None}})
-    if n > MAX_SAMPLES_BWD:
-        raise ValueError(f"ray_march_backward: {n} samples a ray exceed the "
-                         f"kernel's shared memory ({MAX_SAMPLES_BWD})")
+    cots = _check_backward_inputs(colors, densities, depths, g_rgb, g_depth,
+                                  g_weights)
     d_colors = torch.empty_like(colors)
     d_densities = torch.empty_like(densities)
+    scratch, scratch_warps = None, scratch_warps_for(b * r, n)
+    if scratch_warps:
+        scratch = torch.empty(scratch_warps * 7 * n, dtype=torch.float32,
+                              device=colors.device)
     lib = build.library()
     global LAUNCHES_BWD
     with torch.cuda.device(colors.device):
         err = lib.hfa_ray_march_bwd(
             colors.data_ptr(), densities.data_ptr(), depths.data_ptr(),
-            *(None if g is None else g.data_ptr() for g, _ in cots.values()),
-            d_colors.data_ptr(), d_densities.data_ptr(), b * r, n, c,
-            torch.cuda.current_stream().cuda_stream)
+            *(None if g is None else g.data_ptr() for g in cots),
+            d_colors.data_ptr(), d_densities.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), scratch_warps,
+            b * r, n, c, torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_ray_march_bwd")
     LAUNCHES_BWD += 1
     return d_colors, d_densities
@@ -197,20 +229,22 @@ def ray_march(colors: torch.Tensor, densities: torch.Tensor,
     `densities`.
 
     A CPU tensor goes to the plain version; a CUDA tensor launches the
-    kernels (fp32, contiguous, white_back=False) or raises. On CUDA
-    `depths` must not require a gradient: the kernels give none, and a
-    silent zero would train differently from the CPU."""
+    kernels (fp32, contiguous) or raises. On CUDA `depths` must not
+    require a gradient: the kernels give none, and a silent zero would
+    train differently from the CPU. `white_back` adds 2·(1 − Σw) to rgb as
+    torch ops on the kernel's weights (the JAX renderer's own path), so
+    autograd hands that term to the backward kernel as the weights'
+    cotangent."""
     if colors.device.type == "cpu":
         return ray_march_plain(colors, densities, depths,
                                white_back=white_back)
     if colors.device.type != "cuda":
         raise ValueError(f"ray_march: unsupported device {colors.device}")
-    if white_back:
-        raise NotImplementedError("ray_march kernel: white_back=True is not "
-                                  "supported (the JAX kernel asserts it too)")
     if depths.requires_grad:
         raise ValueError("ray_march: the CUDA kernels give no gradient to "
                          "depths; detach them")
     rgb, depth, weights = _RayMarch.apply(colors, densities, depths)
+    if white_back:
+        rgb = add_white_back(rgb, weights)
     lo, hi = torch.aminmax(depths)          # one pass, not two
     return rgb, depth.clamp(lo, hi), weights

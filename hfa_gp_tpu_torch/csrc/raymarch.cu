@@ -22,7 +22,8 @@
 //    compute σ̄, δ, α and mid of their midpoints in parallel.
 //  * The transmittance T_k is an exclusive product scan over the warp
 //    (five __shfl_up_sync steps a chunk of 32 midpoints, a carry across
-//    chunks), so w_k = α_k·T_k is written coalesced by all lanes, and Σw,
+//    chunks; raymarch_common.cuh, which the backward calls too), so
+//    w_k = α_k·T_k is written coalesced by all lanes, and Σw,
 //    Σw·mid come from warp sums. The product is taken in another order
 //    than the sequential walk: a few ulp of T apart.
 //  * rgb = 2·Σ_j a_j·c_j − 1 with a_j = (w_{j−1} + w_j)/2 (w_{−1} =
@@ -74,21 +75,13 @@ ray_march_warp_kernel(const float* __restrict__ colors,
     const bool mid_k = k < N - 1;        // midpoint k exists
     float alpha = 0.0f, mid = 0.0f;
     if (mid_k) {
-      const float d0 = dep[k], d1 = dep[k + 1];
-      const float sigma = hfa::softplus((sig[k] + sig[k + 1]) * 0.5f - 1.0f);
-      alpha = 1.0f - expf(-(sigma * (d1 - d0)));
-      mid = (d0 + d1) * 0.5f;
+      const hfa::Midpoint m = hfa::midpoint(sig[k], sig[k + 1], dep[k],
+                                            dep[k + 1]);
+      alpha = m.alpha;
+      mid = m.mid;
     }
-    // inclusive product of q_j = 1 − α_j + 1e-10 over the chunk
-    float incl = mid_k ? 1.0f - alpha + 1e-10f : 1.0f;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float o = __shfl_up_sync(FULL, incl, off);
-      if (lane >= off) incl *= o;
-    }
-    float excl = __shfl_up_sync(FULL, incl, 1);
-    if (lane == 0) excl = 1.0f;
-    const float w = alpha * (carry * excl);
+    const float w = alpha * hfa::transmittance_scan(
+        mid_k ? 1.0f - alpha + 1e-10f : 1.0f, carry);
     if (mid_k) w_out[k] = w;
     wsum += w;
     dsum += w * mid;
@@ -96,7 +89,6 @@ ray_march_warp_kernel(const float* __restrict__ colors,
     if (lane == 0) w_prev = w_last;
     if (k < N) a[k] = (w_prev + w) * 0.5f;
     w_last = __shfl_sync(FULL, w, 31);
-    carry *= __shfl_sync(FULL, incl, 31);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -169,8 +161,7 @@ __global__ void ray_march_kernel(const float* __restrict__ colors,
   for (int k = 0; k < N - 1; ++k) {
     const float d1 = dep[k + 1], s1 = sig[k + 1];
     const float c1 = has_c ? col[(int64_t)(k + 1) * C + c] : 0.0f;
-    const float sigma = hfa::softplus((s0 + s1) * 0.5f - 1.0f);
-    const float alpha = 1.0f - expf(-(sigma * (d1 - d0)));
+    const float alpha = hfa::midpoint(s0, s1, d0, d1).alpha;
     const float w = alpha * trans;
     if (leader) weights[ray * (N - 1) + k] = w;
     acc += w * ((c0 + c1) * 0.5f);

@@ -1,12 +1,16 @@
-"""RGB-driven avatar head in PyTorch (port of the RGB subset of
-hfa_gp_tpu/models/avatar/heads.py): image → encoder → α → QR subspace →
-EG3D synthesis → 512² image.
+"""Avatar heads in PyTorch (port of hfa_gp_tpu/models/avatar/heads.py,
+one person's subspace):
+  * RGB-driven:   image → encoder → α → QR subspace → EG3D → 512² image;
+  * 3DMM-driven:  expression coefficients → MLP → α → subspace → EG3D;
+  * audio-driven: audio code (AudioNet [+ AudioAttNet], which live in the
+    trainer) → MLP → α → subspace → EG3D.
 
 Labels: dataset labels are OpenCV and pass through; sampled cameras are
 OpenGL and are flipped once (`label_convention="opengl"`).
 
 Params: one `ParamTree` with the JAX keys
-    {"encoder": ..., "subspace": {bases, delta}, "generator": <EG3D>}
+    {"encoder" | "weights_mlp": ..., "subspace": {bases, delta},
+     "generator": <EG3D>}
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ class AvatarConfig:
     dim_shape: int = 50             # latent_dim_shape
     use_softmax: bool = False
     out_pose: bool = False
+    params_len: int = 76            # 3DMM expression-vector length
+    dim_aud: int = 64               # audio code width
+    win_size: int = 16              # DeepSpeech frames a window
+    smo_size: int = 8               # windows a smoothing window
     eg3d: EG3DConfig = field(default_factory=EG3DConfig)
 
 
@@ -49,6 +57,41 @@ def init_avatar_rgb(g: torch.Generator, cfg: AvatarConfig,
         else eg3d_gen.init_generator(g, cfg.eg3d),
     }
     return ParamTree(tree).to(device)
+
+
+def _init_weights_mlp(g: torch.Generator, in_dim: int,
+                      cfg: AvatarConfig) -> dict:
+    """Weights_3DMM: 7 EqualLinear layers, in → dim × 6 → dim_shape."""
+    return enc.init_linear_stack(g, [in_dim] + [cfg.dim] * 6
+                                 + [cfg.dim_shape])
+
+
+def _init_mlp_avatar(g: torch.Generator, in_dim: int, cfg: AvatarConfig,
+                     device, generator_params: dict | None) -> ParamTree:
+    tree = {
+        "weights_mlp": _init_weights_mlp(g, in_dim, cfg),
+        "subspace": sub.init_subspace(g, cfg.dim_shape, cfg.eg3d.num_ws,
+                                      cfg.dim),
+        "generator": generator_params if generator_params is not None
+        else eg3d_gen.init_generator(g, cfg.eg3d),
+    }
+    return ParamTree(tree).to(device)
+
+
+def init_avatar_3dmm(g: torch.Generator, cfg: AvatarConfig,
+                     device: torch.device | str = "cpu",
+                     generator_params: dict | None = None) -> ParamTree:
+    """The 3DMM model: Weights_3DMM on params_len coefficients."""
+    return _init_mlp_avatar(g, cfg.params_len, cfg, device,
+                            generator_params)
+
+
+def init_avatar_audio(g: torch.Generator, cfg: AvatarConfig,
+                      device: torch.device | str = "cpu",
+                      generator_params: dict | None = None) -> ParamTree:
+    """The audio model: Weights_3DMM on dim_aud codes (AudioNet and
+    AudioAttNet live in the trainer, `train/audio.py`)."""
+    return _init_mlp_avatar(g, cfg.dim_aud, cfg, device, generator_params)
 
 
 def get_latent(params, weights: torch.Tensor,
@@ -90,3 +133,27 @@ def rgb_forward(params, cfg: AvatarConfig, image: torch.Tensor,
     img = get_image(params, cfg, get_latent(params, weights, cfg), label,
                     label_convention=label_convention)
     return (img, pose) if cfg.out_pose else img
+
+
+def mlp_get_weights(params, cfg: AvatarConfig,
+                    driving: torch.Tensor) -> torch.Tensor:
+    """(B, params_len | dim_aud) → driving weights (B, dim_shape)."""
+    w = enc.linear_stack_apply(params["weights_mlp"], driving)
+    return torch.softmax(w, dim=1) if cfg.use_softmax else w
+
+
+def t3dmm_forward(params, cfg: AvatarConfig, coeffs: torch.Tensor,
+                  label: torch.Tensor, *, label_convention: str = "opencv"):
+    """coeffs (B, params_len), label (B, 25) → image (B, 512, 512, 3)."""
+    latent = get_latent(params, mlp_get_weights(params, cfg, coeffs), cfg)
+    return get_image(params, cfg, latent, label,
+                     label_convention=label_convention)
+
+
+def audio_forward(params, cfg: AvatarConfig, aud_code: torch.Tensor,
+                  label: torch.Tensor, *, label_convention: str = "opencv"):
+    """aud_code (B, dim_aud), the AudioNet/AudioAttNet output; label
+    (B, 25) → image (B, 512, 512, 3)."""
+    latent = get_latent(params, mlp_get_weights(params, cfg, aud_code), cfg)
+    return get_image(params, cfg, latent, label,
+                     label_convention=label_convention)

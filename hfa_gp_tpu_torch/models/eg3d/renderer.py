@@ -37,7 +37,7 @@ class RenderConfig:
     decoder_lr_mul: float = 1.0
     decoder_hidden: int = 64
     decoder_output_dim: int = 32
-    white_back: bool = False            # True raises on CUDA (marcher)
+    white_back: bool = False            # 2·(1 − Σw) added to rgb
     # Fine placement: "stratified" (the JAX chip path's default) places
     # sampler_depth_window samples at CDF quantiles inside each static
     # depth window (sample_importance_windowed); "global" places all

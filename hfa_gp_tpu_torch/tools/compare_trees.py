@@ -12,9 +12,10 @@ kernels, and prints (the kernels timed in both turns by this file's own
 median of 20):
   * K1 (the sampler's forward) and K2 (its backward: with the points'
     layout where the checkout's wrapper takes one, without it, and on
-    shuffled points) at batch 2 and batch 8, K4 (the marcher) at N 96 and
-    48, K4' (its backward), K5 and K6 (the flash-CE statistics) at
-    C 1,000,000 and 300,000;
+    shuffled points) at batch 2 and batch 8, K4 (the marcher) and K4' (its
+    backward, under rgb's cotangent alone and under all three) at N 48
+    and 96, K5 and K6 (the flash-CE statistics) at C 1,000,000 and
+    300,000;
   * `chip_smoke.py`'s phases [6] (reenactment frames/s at batch 8) and
     [12] (arcface samples/s, dense and row-sparse), as they print
     themselves, and [9] (RGB fitting steps/s at batch 2) over 40 steps
@@ -83,12 +84,15 @@ def worker() -> None:
                             dim=2).values.to(dev)
         ms = measure.device_ms(lambda: raymarch.ray_march(colors, dens, depths))
         print(f"K4 marcher forward, N {n}: {ms:.4f} ms", flush=True)
-    out = raymarch.ray_march(colors, dens, depths)
-    cots = [torch.randn(x.shape, generator=g).to(dev) for x in out]
-    ms = measure.device_ms(lambda: raymarch.ray_march_backward(
-        colors, dens, depths, *cots))
-    print(f"K4' marcher backward: {ms:.4f} ms", flush=True)
-    del colors, dens, depths, out, cots
+        out = raymarch.ray_march(colors, dens, depths)
+        cots = [torch.randn(x.shape, generator=g).to(dev) for x in out]
+        for name, used in (("rgb's cotangent alone", (cots[0], None, None)),
+                           ("all three cotangents", cots)):
+            ms = measure.device_ms(lambda: raymarch.ray_march_backward(
+                colors, dens, depths, *used))
+            print(f"K4' marcher backward, N {n}, {name}: {ms:.4f} ms",
+                  flush=True)
+        del colors, dens, depths, out, cots
     s, b, d = 64.0, 256, 512
     for c in (1_000_000, 300_000):
         ne, w, lab = cs.ce_inputs(dev, g, b, d, c)

@@ -7,6 +7,8 @@ with the same keys, so a `state_dict` key is the npz key with `/` → `.`.
 
 Layout changes on the way:
   * every 4-D `weight` (encoder, synthesis and torgb convs) HWIO → OIHW;
+  * every 3-D `weight` (the audio nets' conv1d layers) WIO → OIW, torch's
+    (cout, cin, k); no other tree the port converts has a 3-D `weight`;
   * the backbone `const` (res, res, C) → (C, res, res);
   * everything else as it is: FC weights are (out, in) in both packages,
     and `noise_const` / `noise_strength` carry over unchanged.
@@ -23,15 +25,17 @@ from torch import nn
 
 class ParamTree(nn.Module):
     """A param tree as a module: tensor leaves are (frozen) parameters,
-    sub-dicts are submodules, keys are kept. Supports `p["key"]`,
-    `"key" in p` and `p.get("key")`, so the apply functions read it like
-    the JAX dicts."""
+    sub-dicts are submodules (a `ParamTree` value is taken as it is), keys
+    are kept. Supports `p["key"]`, `"key" in p` and `p.get("key")`, so the
+    apply functions read it like the JAX dicts."""
 
     def __init__(self, tree: dict[str, Any]):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
+            elif isinstance(v, ParamTree):
+                self.add_module(k, v)
             else:
                 self.register_parameter(
                     k, nn.Parameter(torch.as_tensor(v), requires_grad=False))
@@ -67,6 +71,8 @@ def _convert_leaf(name: str, v) -> torch.Tensor:
     t = torch.from_numpy(np.array(v, dtype=np.float32))
     if name == "weight" and t.ndim == 4:
         return t.permute(3, 2, 0, 1).contiguous()        # HWIO → OIHW
+    if name == "weight" and t.ndim == 3:
+        return t.permute(2, 1, 0).contiguous()           # WIO → OIW
     if name == "const" and t.ndim == 3:
         return t.permute(2, 0, 1).contiguous()           # HWC → CHW
     return t

@@ -402,10 +402,14 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                              .transpose(1, 2), 1.0)
     colors, dens, depths = (torch.from_numpy(a).to(cuda)
                             for a in _march_inputs(6))
-    with pytest.raises(NotImplementedError):
-        raymarch.ray_march(colors, dens, depths, white_back=True)
     with pytest.raises(ValueError):
         raymarch.ray_march(colors, dens[..., :-1, :], depths)
+    with pytest.raises(ValueError):
+        raymarch.ray_march_backward(colors, dens, depths,
+                                    torch.zeros(2, 37, 31, device=cuda))
+    with pytest.raises(ValueError):
+        raymarch.ray_march_backward(colors.double(), dens.double(),
+                                    depths.double())
 
 
 @pytest.mark.gpu
@@ -603,3 +607,150 @@ def test_marcher_kernel_on_empty_and_opaque_rays(cuda, c):
     assert all(bool(torch.isfinite(x).all()) for x in got)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)
+
+
+# -- the marcher's backward: routes, checks, white background -----------------
+
+
+def test_marcher_white_back_as_torch_ops_matches_plain():
+    """On CUDA `white_back` is `add_white_back` on the kernel's outputs:
+    on the CPU, the same composition over the march without it gives the
+    plain white-background march's values and, through autograd (which
+    hands the term to the weights' cotangent), its gradients."""
+    colors, dens, depths = (torch.from_numpy(a).requires_grad_(i < 2)
+                            for i, a in enumerate(_march_inputs(18)))
+    cots = [torch.from_numpy(a) for a in _march_cotangents(18, *colors.shape)]
+    rgb, depth, weights = raymarch.ray_march_plain(colors, dens, depths)
+    got = (raymarch.add_white_back(rgb, weights), depth, weights)
+    want = raymarch.ray_march_plain(colors, dens, depths, white_back=True)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-6, atol=1e-6)
+    grads = [torch.autograd.grad(out, [colors, dens], cots)
+             for out in (got, want)]
+    for g_, w_ in zip(*grads):
+        _assert_grad_close(g_.numpy(), w_.numpy(), rel=1e-6)
+    # the kernel receives the term as a weights' cotangent
+    g_w = cots[2] - 2 * cots[0].sum(-1)[:, :, None, None]
+    direct = raymarch.ray_march_backward_plain(
+        colors, dens, depths, cots[0], cots[1], g_w)
+    for g_, w_ in zip(direct, grads[1]):
+        _assert_grad_close(g_.numpy(), w_.numpy(), rel=1e-5)
+
+
+@pytest.mark.parametrize("rays,n,want", [
+    (32768, 96, 0), (5, 1024, 0), (5, 1755, 0), (5, 1756, 8), (9, 2000, 16),
+    (32768, 2000, 1024)])
+def test_marcher_backward_scratch_only_past_shared_memory(rays, n, want):
+    """The general path's arrays (7·N floats a warp) move to a scratch
+    buffer only when they no longer fit in 48 KB; the buffer is capped at
+    SCRATCH_WARPS warps, a multiple of a block's 8."""
+    assert raymarch.scratch_warps_for(rays, n) == want
+    assert raymarch.GENERAL_SHARED_SAMPLES * 28 <= 48 * 1024 \
+        < (raymarch.GENERAL_SHARED_SAMPLES + 1) * 28
+
+
+def test_marcher_backward_checks_shapes_types_and_layout():
+    """The backward wrapper's checks, which run before any launch, on CPU
+    tensors: cotangent shapes, fp32, contiguity, one device."""
+    colors, dens, depths = (torch.from_numpy(a) for a in _march_inputs(19))
+    g_rgb, g_depth, g_w = (torch.from_numpy(a)
+                           for a in _march_cotangents(19, *colors.shape))
+    assert raymarch._check_backward_inputs(
+        colors, dens, depths, g_rgb, None, g_w) == [g_rgb, None, g_w]
+    bad = [(g_rgb[..., :-1], None, None), (None, g_depth[..., 0], None),
+           (None, None, g_w[:, :, 1:]), (g_rgb.double(), None, None),
+           (g_rgb.transpose(0, 1).contiguous().transpose(0, 1), None, None),
+           (None, g_depth.to("meta"), None)]
+    for cots in bad:
+        with pytest.raises(ValueError):
+            raymarch._check_backward_inputs(colors, dens, depths, *cots)
+    with pytest.raises(ValueError):
+        raymarch._check_backward_inputs(colors, dens[:, :, 1:], depths,
+                                        None, None, None)
+    # a CPU call never reaches the checks' device rule: it is the plain
+    # version, at any sample count
+    colors, dens, depths = (torch.from_numpy(a)
+                            for a in _march_inputs(19, b=1, r=2, n=1800,
+                                                   c=3))
+    n0 = raymarch.LAUNCHES_BWD
+    got = raymarch.ray_march_backward(colors, dens, depths,
+                                      torch.ones(1, 2, 3))
+    assert raymarch.LAUNCHES_BWD == n0 and got[0].shape == colors.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c", [(2, 32), (31, 32), (32, 32), (33, 32),
+                                 (48, 32), (96, 32), (200, 32), (513, 32),
+                                 (1024, 32), (96, 48), (40, 12), (17, 128),
+                                 (1, 8), (50, 3), (33, 35), (20, 130),
+                                 (1025, 32), (1, 3), (2000, 3), (2000, 32)])
+@pytest.mark.parametrize("which", ["all", "rgb", "none"])
+def test_marcher_backward_fast_and_general_paths_match_plain(cuda, n, c,
+                                                             which):
+    """The scan path (C % 4 == 0, C ≤ 128, N ≤ 1024) around its chunks of
+    32 and its 8/4 warps a block, and the general path (C 3, 35, 130,
+    N 1025) with its arrays in shared memory or, at N 2000, in the scratch
+    buffer; under the cotangents training passes (rgb), all three, and
+    none."""
+    r = 21 if n < 1000 else 5
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(20, r=r, n=n, c=c))
+    cots = [torch.from_numpy(a).to(cuda) if which == "all" or
+            (which == "rgb" and name == "rgb") else None
+            for name, a in zip(("rgb", "depth", "weights"),
+                               _march_cotangents(20, 2, r, n, c))]
+    got = raymarch.ray_march_backward(colors, dens, depths, *cots)
+    torch.cuda.synchronize()
+    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
+    for g_, w_ in zip(got, want):
+        assert bool(torch.isfinite(g_).all())
+        if which == "none":
+            assert not g_.abs().max()
+            continue
+        scale = max(float(w_.abs().max()), 1e-6)
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [32, 35])
+def test_marcher_backward_on_empty_and_opaque_rays(cuda, c):
+    """Σw = 0 on the first rays, a transmittance that underflows to 0
+    after a few samples on the rest: nothing is divided by it."""
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(21, r=9, n=96, c=c))
+    dens[:, :4] = -300.0
+    dens[:, 4:] = 300.0
+    cots = [torch.from_numpy(a).to(cuda)
+            for a in _march_cotangents(21, 2, 9, 96, c)]
+    got = raymarch.ray_march_backward(colors, dens, depths, *cots)
+    torch.cuda.synchronize()
+    want = raymarch.ray_march_backward_plain(colors, dens, depths, *cots)
+    for g_, w_ in zip(got, want):
+        assert bool(torch.isfinite(g_).all())
+        scale = max(float(w_.abs().max()), 1e-6)
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_marcher_white_back_on_the_card_matches_plain(cuda):
+    """white_back=True on CUDA: the kernels plus `add_white_back`, values
+    and gradients, with one backward launch."""
+    colors, dens, depths = (torch.from_numpy(a).to(cuda)
+                            for a in _march_inputs(22, n=48))
+    colors.requires_grad_(True)
+    dens.requires_grad_(True)
+    cots = [torch.from_numpy(a).to(cuda)
+            for a in _march_cotangents(22, 2, 37, 48, 32)]
+    outs = {}
+    for name, march in (("kernel", raymarch.ray_march),
+                        ("plain", raymarch.ray_march_plain)):
+        n0 = raymarch.LAUNCHES_BWD
+        out = march(colors, dens, depths, white_back=True)
+        outs[name] = (out, torch.autograd.grad(out, [colors, dens], cots),
+                      raymarch.LAUNCHES_BWD - n0)
+    (got, g_got, n_got), (want, g_want, n_want) = outs["kernel"], outs["plain"]
+    assert (n_got, n_want) == (1, 0)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-5)
+    for g_, w_ in zip(g_got, g_want):
+        _assert_grad_close(g_.cpu().numpy(), w_.cpu().numpy())

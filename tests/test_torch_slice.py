@@ -253,7 +253,10 @@ def test_port_imports_no_jax():
         "'models.arcface.iresnet', 'models.arcface.registry', "
         "'models.arcface.convert', 'train.arcface', 'cli.train_arcface', "
         "'utils.observability', 'tools.probe_sampler', "
-        "'tools.profile_arcface', 'tools.profile_reenact'):\n"
+        "'tools.profile_arcface', 'tools.profile_reenact', "
+        "'models.avatar.audio', 'train.t3dmm', 'train.audio', "
+        "'cli.train_3dmm', 'cli.train_audio', 'cli.run_recon_video_3dmm', "
+        "'cli.run_recon_video_audio'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
