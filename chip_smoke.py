@@ -78,7 +78,24 @@ result line:
      seeded params, at 8's tolerances (a gradient that misses them at a
      LeakyReLU kink held in the L2 norm, as 11 does);
  17. steady-state 3DMM and audio training steps/s at batch 2, and the
-     peak device memory (printed, not asserted).
+     peak device memory (printed, not asserted);
+ 18. the preprocessing path's detector: P-, R- and O-Net card against CPU
+     on a synthetic 1280×720 frame (every pyramid level at min_face_size
+     20, a full batch of 256 candidates), then `detect_faces` timed on the
+     card and split into its stages and the nets' calls;
+ 19. the face-recon ResNet-50 at batch 16, 224², with random heads and BN
+     statistics, card against CPU, its ms a batch and cuDNN's share;
+ 20. `hfa_gp_tpu_torch.cli.process_video.main --use_existing_detections`
+     on the card over 48 synthetic 1280×720 frames: 48 crops of 512²,
+     test.json with 25-number labels and cameras.json, no hand-written
+     kernel launched, the port's HeadData reads them and `train_rgb.main`
+     takes two steps on them at full width; frames/s, ms a frame for each
+     stage and the device's busy share;
+ 21. `hfa_gp_tpu_torch.cli.extract_audio.main` on a 60 s, 16 kHz wav on
+     the card: aud.npy of (1500, 16, 29) that HeadDataAudio reads,
+     DeepSpeech's logits card against CPU on the first 10 s, seconds of
+     audio a second split into MFCC, dense layers and LSTM, and the peak
+     device memory.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step. The line before the last is a
@@ -91,6 +108,7 @@ package `hfa_gp_tpu`, and checks that before the result line.
 
 from __future__ import annotations
 
+import copy
 import glob
 import json
 import os
@@ -1926,6 +1944,545 @@ def phase_3dmm_audio_throughput() -> None:
           f"{peak / 2**30:.3f} GiB", flush=True)
 
 
+# [18]-[21], the preprocessing path: no hand-written kernel lies on it, so
+# each phase holds the path's networks card against CPU and times it.
+#   card vs CPU, relative to the output's scale: MTCNN (three small nets),
+#   the ResNet-50 regressor (53 fp32 conv layers, TF32 off) and DeepSpeech's
+#   logits over 10 s (500 recurrent steps, cuDNN's order of sums)
+PREPROC_RTOL = 1e-4
+# labels and cameras of the chain on the card against the same chain on
+# the CPU, the ResNet-50's coefficients ~1e-6 apart: absolute
+LABEL_ATOL = 1e-5
+FRAME_H, FRAME_W = 720, 1280
+PREPROC_FRAMES = 48
+AUDIO_SECONDS = 60
+
+
+def synthetic_frame(rng, centre=(640.0, 330.0), eyes=120.0) -> np.ndarray:
+    """A seeded 1280×720 RGB frame: smooth colour gradients with noise and
+    a light face-sized ellipse around `centre` with darker eyes and mouth
+    `eyes` pixels apart."""
+    y, x = np.mgrid[0:FRAME_H, 0:FRAME_W].astype(np.float32)
+    img = np.stack([60 + 80 * x / FRAME_W, 90 + 60 * y / FRAME_H,
+                    np.full_like(x, 120)], axis=-1)
+    cx, cy = centre
+    face = ((x - cx) / (0.9 * eyes)) ** 2 + ((y - cy) / (1.2 * eyes)) ** 2 < 1
+    img[face] = (210, 170, 150)
+    for dx, dy, r in ((-0.5, -0.25, 0.12), (0.5, -0.25, 0.12),
+                      (0.0, 0.55, 0.2)):
+        blob = ((x - cx - dx * eyes) ** 2 + (y - cy - dy * eyes) ** 2
+                < (r * eyes) ** 2)
+        img[blob] = (60, 40, 40)
+    img += rng.normal(0, 6, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def face_landmarks(rng, centre, eyes) -> np.ndarray:
+    """The 5 points (eyes, nose, mouth corners) of synthetic_frame's face,
+    jittered by 1.5 px as a detector's would be."""
+    cx, cy = centre
+    pts = np.array([[-0.5, -0.25], [0.5, -0.25], [0.0, 0.15], [-0.4, 0.55],
+                    [0.4, 0.55]]) * eyes + (cx, cy)
+    return (pts + rng.normal(0, 1.5, pts.shape)).astype(np.float32)
+
+
+class StageClock:
+    """Host seconds spent in named functions of a module, each wrapped for
+    the clock's lifetime; `sync` ends a call on the card first."""
+
+    def __init__(self, module, names, sync: bool = False):
+        self.module, self.sync = module, sync
+        self.seconds = {n: 0.0 for n in names}
+        self.orig = {n: getattr(module, n) for n in names}
+        for n in names:
+            setattr(module, n, self._wrap(n, self.orig[n]))
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def close(self) -> None:
+        for n, fn in self.orig.items():
+            setattr(self.module, n, fn)
+
+
+class ForwardClock:
+    """Seconds spent in each module's forward calls, each call ended on the
+    card, while the clock is open."""
+
+    def __init__(self, modules: dict):
+        self.seconds = {name: 0.0 for name in modules}
+        self._start: dict[str, float] = {}
+        self._handles = []
+        for name, m in modules.items():
+            self._handles += [
+                m.register_forward_pre_hook(
+                    lambda *_, name=name: self._begin(name)),
+                m.register_forward_hook(
+                    lambda *_, name=name: self._end(name))]
+
+    def _begin(self, name: str) -> None:
+        torch.cuda.synchronize()
+        self._start[name] = time.perf_counter()
+
+    def _end(self, name: str) -> None:
+        torch.cuda.synchronize()
+        self.seconds[name] += time.perf_counter() - self._start[name]
+
+    def close(self) -> None:
+        for h in self._handles:
+            h.remove()
+
+
+def worst_rel(got, want) -> float:
+    """The largest of rel_err(...)[1] over paired tensors."""
+    return max(rel_err(g.float().cpu(), w.float().cpu())[1]
+               for g, w in zip(got, want))
+
+
+def phase_detector() -> None:
+    """[18] P-, R- and O-Net card against CPU on a synthetic 1280×720 frame
+    (every pyramid level at min_face_size 20; R- and O-Net on 256
+    candidates), then detect_faces on the card, timed and split."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.preprocess import mtcnn
+    rng = np.random.default_rng(SEED + 7)
+    img = synthetic_frame(rng)
+    nets = {dev: mtcnn.init_mtcnn(torch.Generator().manual_seed(SEED), dev)
+            for dev in ("cuda", "cpu")}
+    scales = mtcnn.pyramid_scales(FRAME_H, FRAME_W)
+    err, probs = 0.0, []
+    with torch.inference_mode():
+        for s in scales:
+            hs, ws = int(np.ceil(FRAME_H * s)), int(np.ceil(FRAME_W * s))
+            level = mtcnn._normalize(np.asarray(Image.fromarray(img).resize(
+                (ws, hs), Image.BILINEAR))[None])
+            out = {dev: net.pnet(mtcnn._to_device(level, torch.device(dev)))
+                   for dev, net in nets.items()}
+            err = max(err, worst_rel(out["cuda"], out["cpu"]))
+            vh, vw = (hs - 12) // 2 + 1, (ws - 12) // 2 + 1
+            probs.append(out["cpu"][0][0, 1, :vh, :vw].flatten().numpy())
+    probs = np.concatenate(probs)
+    # thresholds: P-Net's lets its top 2048 windows through, enough for a
+    # full batch of MAX_CANDIDATES after NMS (a lower one leaves the host's
+    # NMS tens of thousands of random-weight windows); none for R-Net, so
+    # that all its NMS survivors reach O-Net; O-Net's median
+    t0 = float(np.sort(probs)[-2048])
+    cand = mtcnn.stage_pnet(nets["cpu"], img, mtcnn.MIN_FACE_SIZE, t0)
+    boxes = mtcnn._square_boxes_np(mtcnn._apply_regression_np(
+        cand[:mtcnn.MAX_CANDIDATES, :4], cand[:mtcnn.MAX_CANDIDATES, 5:9]))
+    r = {dev: mtcnn.stage_rnet(net, img, boxes) for dev, net in nets.items()}
+    o = {dev: mtcnn.stage_onet(net, img, boxes) for dev, net in nets.items()}
+    err_r = worst_rel(*[[torch.from_numpy(a) for a in r[d]]
+                        for d in ("cuda", "cpu")])
+    err_o = worst_rel(*[[torch.from_numpy(a) for a in o[d]]
+                        for d in ("cuda", "cpu")])
+    thresholds = (t0, 0.0, float(np.median(o["cpu"][0])))
+    print(f"[18] detector on a {FRAME_W}x{FRAME_H} frame, {len(scales)} "
+          f"pyramid levels, {probs.size} P-Net windows, {len(cand)} "
+          f"candidates after NMS, {len(boxes)} to R-/O-Net: card vs CPU max "
+          f"abs error over scale P-Net {err:.3e}, R-Net {err_r:.3e}, O-Net "
+          f"{err_o:.3e} (bound {PREPROC_RTOL:g}); thresholds "
+          f"{tuple(round(t, 6) for t in thresholds)}", flush=True)
+    if len(boxes) != mtcnn.MAX_CANDIDATES:
+        fail(f"{len(boxes)} candidates reached R-Net, not a full batch")
+    if not max(err, err_r, err_o) <= PREPROC_RTOL:
+        fail(f"detector card vs CPU: {err}, {err_r}, {err_o}")
+
+    net = nets["cuda"]
+    mtcnn.detect_faces(net, img, thresholds=thresholds)      # warm-up
+    stages = StageClock(mtcnn, ("stage_pnet", "stage_rnet", "stage_onet"))
+    nets_clock = ForwardClock({"pnet": net.pnet, "rnet": net.rnet,
+                               "onet": net.onet})
+    runs = []
+    try:
+        for _ in range(3):
+            before = {**stages.seconds, **nets_clock.seconds}
+            t0 = time.perf_counter()
+            faces = mtcnn.detect_faces(net, img, thresholds=thresholds)
+            total = time.perf_counter() - t0
+            now = {**stages.seconds, **nets_clock.seconds}
+            runs.append({"total": total,
+                         **{k: now[k] - before[k] for k in now}})
+    finally:
+        stages.close()
+        nets_clock.close()
+    ms = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
+    host = ms["total"] - ms["stage_pnet"] - ms["stage_rnet"] \
+        - ms["stage_onet"]
+    print(f"    detect_faces on the card: {ms['total']:.2f} ms a frame "
+          f"(median of 3): pyramid + P-Net {ms['stage_pnet']:.2f} (P-Net "
+          f"calls {ms['pnet']:.2f}), R-Net stage {ms['stage_rnet']:.2f} "
+          f"(R-Net call {ms['rnet']:.2f}), O-Net stage "
+          f"{ms['stage_onet']:.2f} (O-Net call {ms['onet']:.2f}), host "
+          f"between stages {host:.2f}; the nets' calls "
+          f"{ms['pnet'] + ms['rnet'] + ms['onet']:.2f} of {ms['total']:.2f}; "
+          f"{len(faces)} faces", flush=True)
+
+
+def random_recon_state(g: torch.Generator):
+    """init_facerecon's trunk with seeded random heads and BN statistics
+    (the init's heads are zero), coefficients of order 0.3."""
+    from hfa_gp_tpu_torch.preprocess import facerecon
+    net = facerecon.init_facerecon(g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, facerecon.FrozenBatchNorm2d):
+                c = m.scale.shape
+                m.scale.copy_(torch.rand(c, generator=g) * 0.5 + 0.5)
+                m.bias.copy_(torch.randn(c, generator=g) * 0.1)
+                m.mean.copy_(torch.randn(c, generator=g) * 0.1)
+                m.var.copy_(torch.rand(c, generator=g) * 1.5 + 0.5)
+            elif isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                               * 1e-3)
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.1)
+    return net
+
+
+def write_recon_npz(net: torch.nn.Module, path: str) -> None:
+    """`net`'s state as the JAX-layout flat npz that `--recon_weights`
+    reads (tools/convert_facerecon.py's layout): each trunk conv HWIO under
+    its own name, a head's under `weight`."""
+    flat = {}
+    for k, v in net.state_dict().items():
+        v = v.cpu().numpy()
+        if v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+            if not k.startswith("head"):
+                k = k.removesuffix(".weight")
+        flat[k.replace(".", "/")] = v
+    np.savez(path, **flat)
+
+
+def set_tf32(on: bool) -> None:
+    """TF32 for cuDNN's convolutions and the matmuls. The preprocessing
+    phases turn it on before a CLI, so that the CLI computes in fp32 only
+    if it turns TF32 off itself, as every CLI of the port does on the
+    card."""
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+
+
+def tf32_left_on() -> bool:
+    return torch.backends.cudnn.allow_tf32 \
+        or torch.backends.cuda.matmul.allow_tf32
+
+
+def read_chain_outputs(out: str) -> tuple[dict, dict]:
+    """test.json's labels and cameras.json, both keyed by frame."""
+    with open(os.path.join(out, "test.json")) as f:
+        labels = dict(json.load(f)["labels"])
+    with open(os.path.join(out, "cameras.json")) as f:
+        return labels, json.load(f)
+
+
+def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
+    """Operations of `net`'s convolutions on `x`: 2 per multiply-add."""
+    total = [0.0]
+
+    def count(m, _inp, out):
+        total[0] += 2.0 * out.numel() * m.weight[0].numel()
+
+    handles = [m.register_forward_hook(count) for m in net.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        net(x)
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def phase_facerecon() -> None:
+    """[19] the ResNet-50 regressor at batch 16, 224², card against CPU, and
+    its device time a batch with cuDNN's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hfa_gp_tpu_torch.tools.profile_train import GROUPS, on_device
+    cpu = random_recon_state(torch.Generator().manual_seed(SEED))
+    card = random_recon_state(torch.Generator().manual_seed(SEED)).cuda()
+    x = torch.rand((16, 3, 224, 224),
+                   generator=torch.Generator().manual_seed(SEED + 8))
+    xc = x.cuda()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu(x)
+        t_cpu = time.perf_counter() - t0
+        got = card(xc).cpu()
+        ms = cuda_time_ms(lambda: card(xc), iters=10)
+        with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                card(xc)
+            torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    flops = conv_flops(cpu, x[:1]) * x.shape[0]
+    needles = dict(GROUPS)["convolution (cuDNN, depthwise, FFT)"]
+    per = [(float(e.self_device_time_total), e.key)
+           for e in prof.key_averages() if on_device(e)]
+    total = sum(us for us, _ in per)
+    conv = sum(us for us, k in per if any(n in k for n in needles))
+    print(f"[19] face recon (ResNet-50) batch 16 at 224²: card vs CPU max abs "
+          f"error {err:.3e}, {rel:.3e} of the scale "
+          f"{want.abs().max().item():.3f} (bound {PREPROC_RTOL:g}); "
+          f"{ms:.3f} ms a batch on the card ({16e3 / ms:.1f} crops/s; "
+          f"{flops / 1e9:.1f} GFLOP of convolutions, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s), "
+          f"convolutions (cuDNN) {100 * conv / max(total, 1e-9):.1f} % of its "
+          f"device time; CPU {t_cpu:.2f} s", flush=True)
+    if got.shape != (16, 257) or not torch.isfinite(got).all():
+        fail(f"face recon output {tuple(got.shape)}")
+    if not rel <= PREPROC_RTOL:
+        fail(f"face recon card vs CPU: {rel} of the scale")
+
+
+def write_video_frames(root: str, n: int) -> None:
+    """{root}/frames: n synthetic frames of a face that drifts, as PNGs,
+    and {root}/frames/detections: their 5 points."""
+    from PIL import Image
+    rng = np.random.default_rng(SEED + 9)
+    det = os.path.join(root, "frames", "detections")
+    os.makedirs(det)
+    for i in range(n):
+        centre = (640.0 + 40 * np.sin(i / 8), 330.0 + 10 * np.cos(i / 11))
+        Image.fromarray(synthetic_frame(rng, centre)).save(
+            os.path.join(root, "frames", f"{i:04d}.png"), compress_level=1)
+        np.savetxt(os.path.join(det, f"{i:04d}.txt"),
+                   face_landmarks(rng, centre, 120.0))
+
+
+def phase_process_video(tmp: str) -> None:
+    """[20] cli.process_video --use_existing_detections on the card over
+    48 synthetic 1280×720 frames, with [19]'s random-head regressor as
+    --recon_weights: 48 crops of 512², test.json and cameras.json, held
+    against the same command on the CPU (crops byte for byte, labels and
+    cameras to LABEL_ATOL); the port's HeadData reads them and train_rgb
+    takes two steps on them at full width with [7]'s flags."""
+    import shutil
+
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from hfa_gp_tpu_torch.cli import process_video, train_rgb
+    from hfa_gp_tpu_torch.data.dataset import HeadData
+    from hfa_gp_tpu_torch.preprocess import pipeline
+    from hfa_gp_tpu_torch.tools.profile_train import device_busy_us
+    from hfa_gp_tpu_torch.preprocess import convert, pose
+    from hfa_gp_tpu_torch.utils.convert import load_npz
+    n = PREPROC_FRAMES
+    write_video_frames(tmp, n)
+    recon = random_recon_state(torch.Generator().manual_seed(SEED))
+    weights = os.path.join(tmp, "recon.npz")
+    write_recon_npz(recon, weights)
+    back = convert.facerecon_from_jax(load_npz(weights)).state_dict()
+    if any(not torch.equal(back[k], v)
+           for k, v in recon.state_dict().items()):
+        fail("the face-recon npz does not read back as written")
+    out = os.path.join(tmp, "nerface_dataset", "person_3", "train",
+                       "cropped_images")
+
+    def cli_args(out_dir: str, device: str):
+        return process_video.build_argparser().parse_args([
+            "--in_root", os.path.join(tmp, "frames"), "--out_dir", out_dir,
+            "--recon_weights", weights, "--use_existing_detections",
+            "--device", device])
+
+    args = cli_args(out, "cuda")
+    stages = ("load_detections", "smooth_landmarks", "regress_coeffs",
+              "crop_frames", "make_labels")
+    clock = StageClock(pipeline, stages, sync=True)
+    reset_launches()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            set_tf32(True)
+            t0 = time.perf_counter()
+            process_video.main(args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        clock.close()
+    launches = read_launches()
+    if tf32_left_on():
+        fail("cli.process_video left TF32 on")
+    busy_us, _ = device_busy_us(prof)
+    crops = sorted(glob.glob(os.path.join(out, "*.png")))
+    sizes = {Image.open(p).size for p in crops}
+    labels, cams = read_chain_outputs(out)
+
+    # the same command on the CPU
+    out_cpu = os.path.join(tmp, "cpu_chain")
+    t0 = time.perf_counter()
+    process_video.main(cli_args(out_cpu, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    labels_cpu, cams_cpu = read_chain_outputs(out_cpu)
+    same_crops = sum(
+        open(p, "rb").read() == open(os.path.join(out_cpu,
+                                                  os.path.basename(p)),
+                                     "rb").read() for p in crops)
+    label_err = max(np.abs(np.subtract(labels[k], labels_cpu[k])).max()
+                    for k in labels_cpu)
+    cam_err = max(np.abs(np.subtract(cams[k][f], cams_cpu[k][f])).max()
+                  for k in cams_cpu for f in ("intrinsics", "pose", "angle"))
+    # every frame's label against the one zero coefficients give (what
+    # init_facerecon's zero heads return): the regressor moved them
+    zero = pose.labels_from_coeffs(torch.zeros(1, 3),
+                                   torch.zeros(1, 3))[0].numpy()
+    moved = min(np.abs(np.subtract(v, zero)).max() for v in labels.values())
+    per = {k: 1e3 * v / n for k, v in clock.seconds.items()}
+    print(f"[20] process_video on the card, {n} frames of {FRAME_W}x"
+          f"{FRAME_H}: {seconds:.2f} s, {n / seconds:.3f} frames/s (nets' "
+          f"random init included); ms a frame: read detections "
+          f"{per['load_detections']:.3f}, smooth {per['smooth_landmarks']:.3f}"
+          f", align + recon {per['regress_coeffs']:.2f}, crop "
+          f"{per['crop_frames']:.2f}, labels {per['make_labels']:.3f}; device "
+          f"busy {busy_us / 1e3:.2f} ms = {100 * busy_us / 1e6 / seconds:.2f} "
+          f"% of the run; {len(crops)} crops {sorted(sizes)}, {len(labels)} "
+          f"labels, {len(cams)} cameras; launches {launches}", flush=True)
+    print(f"    the same command on the CPU ({cpu_s:.2f} s): {same_crops} of "
+          f"{len(crops)} crops equal byte for byte, labels max abs error "
+          f"{label_err:.3e}, cameras {cam_err:.3e} (bound {LABEL_ATOL:g}); "
+          f"each label at least {moved:.3f} from zero coefficients' label",
+          flush=True)
+    if len(crops) != n or sizes != {(512, 512)}:
+        fail(f"process_video wrote {len(crops)} crops {sizes}")
+    if len(labels) != n or {len(v) for v in labels.values()} != {25} \
+            or not np.isfinite(list(labels.values())).all() \
+            or len(cams) != n:
+        fail(f"process_video labels {len(labels)}, cameras {len(cams)}")
+    if sorted(labels_cpu) != sorted(labels) or sorted(cams_cpu) != \
+            sorted(cams) or same_crops != n:
+        fail(f"process_video card vs CPU: {same_crops} of {n} crops equal, "
+             f"{len(labels_cpu)} labels, {len(cams_cpu)} cameras")
+    if not max(label_err, cam_err) <= LABEL_ATOL:
+        fail(f"process_video card vs CPU: labels {label_err}, cameras "
+             f"{cam_err}")
+    if not moved > 0.01:
+        fail(f"the labels do not depend on the regressor: {moved}")
+    if launches != NO_LAUNCHES:
+        fail(f"a hand-written kernel ran on the preprocessing path: "
+             f"{launches}")
+    img, label = HeadData("train", size=256, root=os.path.join(
+        tmp, "nerface_dataset"), person="person_3")[0]
+    if img.shape != (256, 256, 3) or label.shape != (25,):
+        fail(f"HeadData read {tuple(img.shape)}, {tuple(label.shape)}")
+    shutil.copytree(out, os.path.join(tmp, "nerface_dataset", "person_3",
+                                      "test2", "cropped_images"))
+
+    steps = 2
+    exp = os.path.join(tmp, "exps")
+    reset_launches()
+    train_rgb.main(train_rgb.build_argparser().parse_args([
+        "--dataset_root", tmp, "--person", "person_3", "--size", "256",
+        "--batch_size", "2", "--exp_path", exp, "--exp_name", "preproc",
+        "--tune_iter", "2", "--device", "cuda", "--iter", str(steps),
+        "--display_freq", "100", "--save_freq", "100"]))
+    launches = read_launches()
+    shown = train_losses("train_rgb on the crops",
+                         os.path.join(exp, "preproc"), steps)
+    print(f"    train_rgb on the crops: {steps} steps, (l2, lpips) {shown}, "
+          f"launches {launches}", flush=True)
+    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+                "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
+                "ray_marcher_bwd": steps}
+    if launches != expected:
+        fail(f"train_rgb on the crops launched {launches}, expected "
+             f"{expected}")
+
+
+def write_wav(path: str, seconds: float) -> None:
+    """A seeded 16 kHz 16-bit mono wav: a gliding tone under noise."""
+    import wave
+    rng = np.random.default_rng(SEED + 10)
+    t = np.arange(int(16000 * seconds)) / 16000
+    audio = (0.3 * np.sin(2 * np.pi * (200 + 30 * np.sin(t)) * t)
+             * np.sin(2 * np.pi * 2 * t) + rng.normal(0, 0.05, t.shape))
+    with wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(16000)
+        f.writeframes((audio * 8000).astype(np.int16).tobytes())
+
+
+def phase_extract_audio(tmp: str) -> None:
+    """[21] cli.extract_audio on a 60 s wav on the card: aud.npy of
+    (1500, 16, 29) at 25 fps that HeadDataAudio reads; DeepSpeech's logits
+    card against CPU on the first 10 s; seconds of audio per second, split
+    into MFCC (host), dense layers and LSTM, and the peak memory."""
+    from hfa_gp_tpu_torch.cli import extract_audio
+    from hfa_gp_tpu_torch.data.dataset import HeadDataAudio
+    from hfa_gp_tpu_torch.preprocess import deepspeech as ds
+    wav = os.path.join(tmp, "sp.wav")
+    write_wav(wav, AUDIO_SECONDS)
+    write_audio_dataset(tmp)
+    aud = os.path.join(tmp, "ad_dataset", "obama", "aud.npy")
+    set_tf32(True)
+    t0 = time.perf_counter()
+    extract_audio.main(extract_audio.build_argparser().parse_args([
+        "--wav", wav, "--out", aud, "--device", "cuda"]))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    if tf32_left_on():
+        fail("cli.extract_audio left TF32 on")
+    feats = np.load(aud)
+    item = HeadDataAudio("train", size=256, root=os.path.join(
+        tmp, "ad_dataset"), person="obama")[0]
+    print(f"[21] extract_audio on the card, {AUDIO_SECONDS} s of 16 kHz "
+          f"audio: aud.npy {feats.shape}, {cli_s:.2f} s of command (the "
+          f"net's random init included), HeadDataAudio item audio "
+          f"{tuple(item[2].shape)}", flush=True)
+    if feats.shape != (AUDIO_SECONDS * 25, 16, 29) \
+            or not np.isfinite(feats).all() or item[2].shape != (16, 29):
+        fail(f"aud.npy {feats.shape}, item {tuple(item[2].shape)}")
+
+    audio, _ = extract_audio.load_wav(wav)
+    cpu = ds.init_deepspeech(torch.Generator().manual_seed(SEED))
+    net = copy.deepcopy(cpu).cuda()
+    t0 = time.perf_counter()
+    vec = ds.input_vectors(audio)
+    mfcc_s = time.perf_counter() - t0
+    x = torch.from_numpy(vec).cuda()
+    with torch.inference_mode():
+        head = vec[:500]
+        want = cpu(torch.from_numpy(head))
+        got = net(x[:500]).cpu()
+        err, rel = rel_err(got, want)
+        torch.cuda.reset_peak_memory_stats()
+        h = net.dense(x)
+        r = net.recur(h)
+        dense_ms = cuda_time_ms(lambda: net.dense(x), iters=5, warmup=1)
+        lstm_ms = cuda_time_ms(lambda: net.recur(h), iters=5, warmup=1)
+        head_ms = cuda_time_ms(lambda: net.head(r), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ds.extract_features(net, audio)
+    extract_s = time.perf_counter() - t0
+    w_hh = nbytes(net.lstm.weight_hh_l0, net.lstm.weight_hh_l0_reverse)
+    print(f"    DeepSpeech logits card vs CPU on the first 10 s: max abs "
+          f"error {err:.3e}, {rel:.3e} of the scale "
+          f"{want.abs().max().item():.3f} (bound {PREPROC_RTOL:g})", flush=True)
+    print(f"    {AUDIO_SECONDS} s of audio: extract_features {extract_s:.3f} "
+          f"s = {AUDIO_SECONDS / extract_s:.1f} s of audio a second "
+          f"({AUDIO_SECONDS / cli_s:.1f} for the whole command); MFCC and "
+          f"context (host) {mfcc_s * 1e3:.1f} ms, dense layers "
+          f"{dense_ms + head_ms:.2f} ms (h1-h3 {dense_ms:.2f}, h5 + logits "
+          f"{head_ms:.2f}), LSTM {lstm_ms:.2f} ms ({vec.shape[0]} steps, "
+          f"both directions: {1e3 * lstm_ms / vec.shape[0]:.1f} µs a step, "
+          f"whose recurrent weights ({w_hh / 2**20:.0f} MiB) take "
+          f"{1e6 * w_hh / PEAK_BYTES_PER_S:.1f} µs to read at the memory "
+          f"rate); peak device memory {peak / 2**30:.3f} GiB",
+          flush=True)
+    if not rel <= PREPROC_RTOL:
+        fail(f"DeepSpeech card vs CPU: {rel} of the scale")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -1959,6 +2516,12 @@ def main() -> None:
         audio_launches = phase_audio_path(tmp)
     phase_audio_step_card_vs_cpu()
     phase_3dmm_audio_throughput()
+    phase_detector()
+    phase_facerecon()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_process_video(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_extract_audio(tmp)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the

@@ -22,6 +22,9 @@ Layout:
   utils/convert.py              JAX param tree / flat npz → modules
   cli/train_rgb.py              RGB fitting entry point
   cli/run_recon_video_rgb.py    RGB-driven reenactment entry point
+  preprocess/                   video frames → MTCNN → face recon → EG3D crops
+                                and labels; wav → DeepSpeech aud.npy
+  cli/process_video.py, cli/extract_audio.py   their entry points
   tools/                        self-reconstruction fit, training-step profile
 
 Public functions keep the JAX layouts: images (B, H, W, 3) in [-1, 1],

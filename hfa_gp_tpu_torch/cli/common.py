@@ -177,9 +177,23 @@ def save_args(args, dirs: dict[str, str]) -> None:
                   f, indent=2)
 
 
+def device_from_args(args) -> torch.device:
+    """The device `--device` names, set up as every CLI runs it: a CUDA
+    device without a card raises (no fallback to the CPU), and on CUDA the
+    backends run full fp32 (`fp32_backends`)."""
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {args.device}: no CUDA card is "
+                               "available (pass --device cpu to run on the "
+                               "CPU)")
+        fp32_backends()
+    return device
+
+
 def fp32_backends() -> None:
     """Full fp32 on the card: cuDNN convolutions default to TF32, which
-    keeps about three decimal digits; the slice turns TF32 off for convs
+    keeps about three decimal digits; the port turns TF32 off for convs
     and matmuls."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

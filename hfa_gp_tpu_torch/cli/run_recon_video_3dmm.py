@@ -68,9 +68,7 @@ def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
 def main(args) -> None:
     cfg = dataclasses.replace(common.avatar_config(args),
                               params_len=args.params_len)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadData3DMM(args.dataset_type, size=args.size, root=root,
                            person=args.person)

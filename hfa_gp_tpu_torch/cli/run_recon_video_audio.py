@@ -69,9 +69,7 @@ def main(args) -> None:
     cfg = dataclasses.replace(common.avatar_config(args),
                               dim_aud=args.dim_aud, win_size=args.win_size,
                               smo_size=args.smo_size)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataAudio(args.dataset_type, size=args.size, root=root,
                             person=args.person, smo_size=args.smo_size)

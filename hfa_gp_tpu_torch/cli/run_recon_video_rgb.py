@@ -73,9 +73,7 @@ def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
 
 def main(args) -> None:
     cfg = common.avatar_config(args)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
                            person=args.person, ds_path=args.ds_path,

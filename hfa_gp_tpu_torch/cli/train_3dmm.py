@@ -43,9 +43,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(args) -> None:
     cfg = dataclasses.replace(common.avatar_config(args),
                               params_len=args.params_len)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     dirs = common.make_dirs(args)
     common.save_args(args, dirs)
     root = f"{args.dataset_root}/{args.dataset}"

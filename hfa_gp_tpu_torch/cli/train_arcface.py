@@ -122,9 +122,7 @@ def synth_batch(batch_size: int, num_classes: int,
 
 def main(args) -> float:
     check_supported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     if args.output:
         os.makedirs(os.path.abspath(args.output), exist_ok=True)
     logger = init_logging(

@@ -79,9 +79,7 @@ def main(args) -> dict[str, float]:
     """Runs the fit; returns the PSNRs (dB) before and after and the
     seconds the training steps took. Raises if the training PSNR did not
     rise by 3 dB."""
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        common.fp32_backends()
+    device = common.device_from_args(args)
     steps = args.steps if args.steps is not None else (30 if args.small
                                                        else 400)
     batch = args.batch if args.batch is not None else (2 if args.small else 4)

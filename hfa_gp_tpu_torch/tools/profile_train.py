@@ -145,16 +145,35 @@ def main(args) -> None:
     device_report(prof, args.steps, OUR_KERNELS)
 
 
+def on_device(e) -> bool:
+    """Kernels and copies only: an operator's own entry, or an annotation's
+    range, repeats the time of the kernels under it."""
+    return str(e.device_type).endswith("CUDA") \
+        and not getattr(e, "is_user_annotation", False)
+
+
+def device_busy_us(prof) -> tuple[float, float]:
+    """(µs in which a kernel or copy ran, µs from the first to the last)
+    of a `torch.profiler` run."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if on_device(e))
+    if not spans:
+        return 0.0, 0.0
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    return busy, max(e for _, e in spans) - spans[0][0]
+
+
 def device_report(prof, steps: int, ours) -> None:
     """From a `torch.profiler` run over `steps` whole steps: device time by
     kernel (top 25) and by group, the share of the hand-written kernels
     named in `ours`, and the share of the window the device was busy."""
-    def on_device(e) -> bool:
-        """Kernels and copies only: an operator's own entry, or an
-        annotation's range, repeats the time of the kernels under it."""
-        return str(e.device_type).endswith("CUDA") \
-            and not getattr(e, "is_user_annotation", False)
-
     rows = sorted(((float(e.self_device_time_total), e.key, e.count)
                    for e in prof.key_averages() if on_device(e)),
                   reverse=True)
@@ -180,18 +199,8 @@ def device_report(prof, steps: int, ours) -> None:
         print(f"  ours: {name:26s} {100 * us / total:5.2f} %  "
               f"{us / 1e3:9.3f} ms  x{n}  "
               f"({us / 1e3 / max(n, 1):.3f} ms a launch)")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if on_device(e))
-    if spans:
-        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += cur_e - cur_s
-        window = max(e for _, e in spans) - spans[0][0]
+    busy, window = device_busy_us(prof)
+    if window:
         print(f"device busy {busy / 1e3:.3f} of {window / 1e3:.3f} ms: "
               f"{100 * busy / window:.1f} %")
 

@@ -13,6 +13,7 @@ rounding edge.
 
 import dataclasses
 import glob
+import importlib
 import json
 import os
 import subprocess
@@ -240,6 +241,48 @@ def test_save_image_and_video_match_jax(tmp_path):
     assert os.path.getsize(out) > 0
 
 
+# every entry point with a --device flag, and the flags it needs to parse
+DEVICE_CLIS = {
+    "cli.train_rgb": [], "cli.train_3dmm": [], "cli.train_audio": [],
+    "cli.run_recon_video_rgb": [], "cli.run_recon_video_3dmm": [],
+    "cli.run_recon_video_audio": [], "cli.train_arcface": ["--fp32"],
+    "cli.process_video": ["--in_root", "frames"],
+    "cli.extract_audio": ["--wav", "a.wav", "--out", "aud.npy"],
+    "tools.fit_selfrecon": [],
+}
+
+
+class _DeviceSetUp(Exception):
+    """Raised right after an entry point's device set-up."""
+
+
+@pytest.mark.parametrize("name", sorted(DEVICE_CLIS))
+def test_cli_sets_up_the_card_before_anything_else(name, monkeypatch):
+    """`--device cuda` goes through `common.device_from_args` first: without
+    a card it raises (no fallback), and with one it turns TF32 off for
+    cuDNN's convolutions and the matmuls."""
+    mod = importlib.import_module(f"hfa_gp_tpu_torch.{name}")
+    args = mod.build_argparser().parse_args(DEVICE_CLIS[name]
+                                            + ["--device", "cuda"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mod.main(args)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    real = common.device_from_args
+
+    def set_up(a):
+        real(a)
+        raise _DeviceSetUp
+
+    monkeypatch.setattr(common, "device_from_args", set_up)
+    with pytest.raises(_DeviceSetUp):
+        mod.main(args)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
 def test_port_imports_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -256,7 +299,11 @@ def test_port_imports_no_jax():
         "'tools.profile_arcface', 'tools.profile_reenact', "
         "'models.avatar.audio', 'train.t3dmm', 'train.audio', "
         "'cli.train_3dmm', 'cli.train_audio', 'cli.run_recon_video_3dmm', "
-        "'cli.run_recon_video_audio'):\n"
+        "'cli.run_recon_video_audio', 'preprocess.smoothing', "
+        "'preprocess.align', 'preprocess.bfm', 'preprocess.pose', "
+        "'preprocess.facerecon', 'preprocess.mtcnn', 'preprocess.pipeline', "
+        "'preprocess.deepspeech', 'preprocess.warp', 'preprocess.losses', "
+        "'preprocess.convert', 'cli.process_video', 'cli.extract_audio'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
