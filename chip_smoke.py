@@ -24,7 +24,9 @@ result line:
      N 2000 with its scratch buffer); the flash-CE kernels also at a batch
      above one group of rows with ragged class and depth counts, d w bit
      for bit across two launches, and the backward's ablation (a time per
-     variant);
+     variant), and with bf16 operands (the JAX CLI's default) at the main
+     path's shape, timed against a bound whose products run at the bf16
+     rate;
   4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
      dataset: 4 PNGs of 512², a video, finite frames, and each forward
@@ -95,10 +97,29 @@ result line:
      the card: aud.npy of (1500, 16, 29) that HeadDataAudio reads,
      DeepSpeech's logits card against CPU on the first 10 s, seconds of
      audio a second split into MFCC, dense layers and LSTM, and the peak
-     device memory.
+     device memory;
+ 22. `train_arcface.main` with MobileFaceNet ("mbf"), fp32, 1,000,000
+     classes dense, batch 256: 6 steps, finite losses that do not rise,
+     one K5 and one K6 launch a step, the CLI's samples/s, peak memory;
+ 23. the same with "vit_t", AdamW at 1e-3, `--sample_rate 0.3`, 2,000,000
+     classes, bf16, with masking once a step and drop path on both
+     branches of every block after the first;
+ 24. the JAX CLI's default command, iresnet50 in bf16 (trunk and head
+     products) at 1,000,000 classes dense, the same checks; then one bf16
+     step's loss and gradients, card vs CPU;
+ 25. `train_arcface.main --val_bin --verbose 2 --export` (mbf, bf16) on a
+     64-pair synthetic .bin: the accuracy lines, model.pt2 through
+     `torch.export.load` against `backbone_apply` at batch 1 and 64, then
+     `cli.eval_verification.main` on the exported model.npz, card vs CPU,
+     and its pairs/s on the card with iresnet50;
+ 26. `cli.eval_ijb.main` on a synthetic IJB layout of 20 subjects × 2
+     templates × 2 media with random weights: same-subject template pairs
+     above cross-subject ones, rank-1 identification, scores card vs CPU
+     (mbf), and images/s on the card with iresnet50.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
-reenactment batch, RGB step and arcface step. The line before the last is a
+reenactment batch, RGB step and arcface step (a bf16 one for the bf16
+entries, whose launches are [24]'s). The line before the last is a
 JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, with no result line, when CUDA is unavailable or when
@@ -111,6 +132,7 @@ from __future__ import annotations
 import copy
 import glob
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -170,9 +192,11 @@ ARC_GRAD_SMOOTH_RTOL = 1e-3
 ARC_LOSS_RISE = 1.05
 
 # the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
-# memory rate, and fp32 outside the tensor cores
+# memory rate, fp32 outside the tensor cores, and dense bf16 on them (the
+# rate a product of bf16 operands could run at)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 
 def fail(msg: str) -> None:
@@ -189,11 +213,14 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return device_ms(fn, iters, warmup)
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, n_flops_bf16: float = 0.0
+          ) -> dict:
     """The least time the card could take: the larger of compulsory bytes
-    over the memory rate and fp32 operations over the peak rate."""
+    over the memory rate and the operations over the peak rate for their
+    type (fp32 operations, and the products of bf16 operands)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_flops = (n_flops / PEAK_FP32_FLOPS
+               + n_flops_bf16 / PEAK_BF16_FLOPS) * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
@@ -509,16 +536,18 @@ def phase_sampler_bwd_general_paths(dev, g) -> None:
 
 
 def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
-                 n_bytes, n_flops) -> dict:
+                 n_bytes, n_flops, n_flops_bf16=0.0) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, **bound(n_bytes, n_flops),
+             "plain_ms": plain_ms, **bound(n_bytes, n_flops, n_flops_bf16),
              "library_ms": library_ms}
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    bf16 = f" + {n_flops_bf16 / 1e9:.3f} GFLOP of bf16 products" \
+        if n_flops_bf16 else ""
     print(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"call {lib}, bound {entry['bound_ms']:.4f} ms by "
           f"{entry['bound_by']} ({n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.3f} GFLOP)", flush=True)
+          f"{n_flops / 1e9:.3f} GFLOP{bf16})", flush=True)
     return entry
 
 
@@ -862,10 +891,65 @@ def phase_kernels_flash_ce(dev: torch.device, g) -> list[dict]:
         print("    flash-CE backward, ablation (ms): " + ", ".join(
             f"{k} {v:.4f}" for k, v in ablation.items()), flush=True)
         entries["bwd"]["ablation_ms"] = ablation
-        del ne, w, lab, got, want
+        del got, want
+        entries.update(flash_ce_bf16_entries(ne, w, lab, s, ct_se, ct_tgt))
+        del ne, w, lab
     torch.cuda.empty_cache()
     phase_flash_ce_general_paths(dev, g)
-    return [entries["fwd"], entries["bwd"]]
+    return [entries[k] for k in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")]
+
+
+def flash_ce_bf16_entries(ne, w, lab, s: float, ct_se, ct_tgt) -> dict:
+    """K5 and K6 with bf16 operands, the route of the JAX CLI's default
+    (`train_arcface` without --fp32), at the main path's shape: against
+    their plain versions, which round the same operands to bf16, and
+    timed. The products' operations are bounded at the bf16 rate of the
+    tensor cores, the rest at fp32's."""
+    from hfa_gp_tpu_torch.core.kernels import flash_ce
+    bf = torch.bfloat16
+    (b, d), c = ne.shape, w.shape[0]
+    se, tgt = flash_ce.flash_ce_stats(ne, w, lab, s, bf)
+    se_p, tgt_p = flash_ce.flash_ce_stats_plain(ne, w, lab, s, bf)
+    torch.cuda.synchronize()
+    se_rel = ((se - se_p).abs() / se_p.abs().clamp_min(1e-30)).max().item()
+    tgt_err = (tgt - tgt_p).abs().max().item()
+    got = flash_ce.flash_ce_stats_backward(ne, w, lab, s, bf, ct_se, ct_tgt)
+    want = flash_ce.flash_ce_stats_backward_plain(ne, w, lab, s, bf, ct_se,
+                                                  ct_tgt)
+    torch.cuda.synchronize()
+    errs = [rel_err(x, y) for x, y in zip(got, want)]
+    rel = max(r for _, r in errs)
+    print(f"[3] flash-CE kernels vs plain with bf16 operands, B {b}, d {d}, "
+          f"C {c}: se_x max rel err {se_rel:.3e} (bound {CE_SE_RTOL:g}), "
+          f"tgt_raw {tgt_err:.3e} (bound {CE_TGT_ATOL:g}); d norm_emb "
+          f"{errs[0][1]:.3e}, d w {errs[1][1]:.3e} of the gradient's scale "
+          f"(bound {CE_BF16_BWD_RTOL:g})", flush=True)
+    if not se_rel <= CE_SE_RTOL or not tgt_err <= CE_TGT_ATOL \
+            or not rel <= CE_BF16_BWD_RTOL:
+        fail(f"flash-CE kernels with bf16 operands at C {c}: se_x {se_rel}, "
+             f"tgt_raw {tgt_err}, gradients {rel}")
+    ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s, bf))
+    plain_ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_plain(
+        ne, w, lab, s, bf))
+    out = {"fwd_bf16": kernel_entry(
+        "flash_ce_fwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce.cu",
+        "hfa_gp_tpu/parallel/pallas_ce.py:78", tgt_err, ms, plain_ms, None,
+        nbytes(ne, w, lab, se, tgt), 2.0 * c * d + 7.0 * b * c,
+        2.0 * b * d * c)}
+    out["fwd_bf16"]["max_rel_err_se_x"] = se_rel
+    ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_backward(
+        ne, w, lab, s, bf, ct_se, ct_tgt))
+    plain_ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_backward_plain(
+        ne, w, lab, s, bf, ct_se, ct_tgt))
+    out["bwd_bf16"] = kernel_entry(
+        "flash_ce_bwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce_bwd.cu",
+        "hfa_gp_tpu/parallel/pallas_ce.py:108", max(e for e, _ in errs), ms,
+        plain_ms, None, nbytes(ne, w, lab, ct_se, ct_tgt, *got),
+        5.0 * c * d + 14.0 * b * c, 6.0 * b * d * c)
+    out["bwd_bf16"]["max_err_over_scale"] = rel
+    for e in out.values():
+        e["operands"] = "bf16"
+    return out
 
 
 def phase_flash_ce_general_paths(dev: torch.device, g) -> None:
@@ -973,7 +1057,9 @@ def write_dataset(root: str, n: int = 4, size: int = 256,
 LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
                      "triplane_sampler_bwd": (0, 2, 0),
                      "ray_marcher": (2, 2, 0), "ray_marcher_bwd": (0, 1, 0),
-                     "flash_ce_fwd": (0, 0, 1), "flash_ce_bwd": (0, 0, 1)}
+                     "flash_ce_fwd": (0, 0, 1), "flash_ce_bwd": (0, 0, 1),
+                     "flash_ce_fwd_bf16": (0, 0, 1),
+                     "flash_ce_bwd_bf16": (0, 0, 1)}
 
 NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
                "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
@@ -1311,9 +1397,11 @@ def arc_args(*extra):
         "--device", "cuda", *extra])
 
 
-def run_arcface_cli(args) -> tuple[list[float], dict[str, int], float, float]:
+def run_arcface_cli(args) -> tuple[list[float], dict[str, int], float, float,
+                                   float]:
     """`train_arcface.main(args)` with the step function wrapped so that
-    every step's loss is kept: (losses, launches, seconds, peak bytes)."""
+    every step's loss is kept: (losses, launches, seconds, peak bytes, the
+    samples/s the CLI reports)."""
     from hfa_gp_tpu_torch.cli import train_arcface
     losses = []
     make = train_arcface.arc.make_train_step
@@ -1333,14 +1421,14 @@ def run_arcface_cli(args) -> tuple[list[float], dict[str, int], float, float]:
     reset_launches()
     t0 = time.perf_counter()
     try:
-        train_arcface.main(args)
+        sps = train_arcface.main(args)
     finally:
         train_arcface.arc.make_train_step = make
     launches = read_launches()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return ([float(x) for x in losses], launches, seconds,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), sps)
 
 
 def backbone_peak_bytes() -> int:
@@ -1380,7 +1468,7 @@ def phase_arcface_path(tmp: str) -> dict[str, int]:
     out = os.path.join(tmp, "arcface")
     steps = 6
     # -- dense, 1,000,000 classes
-    losses, launches, seconds, peak = run_arcface_cli(arc_args(
+    losses, launches, seconds, peak, _ = run_arcface_cli(arc_args(
         *ARC_CONFIGS["dense"], "--num_steps", str(steps), "--log_freq", "2",
         "--output", out, "--save_freq", "3"))
     cdir = os.path.join(out, "checkpoint")
@@ -1398,7 +1486,7 @@ def phase_arcface_path(tmp: str) -> dict[str, int]:
         fail(f"the dense run launched {launches}, expected {expected}")
 
     # -- resumed to 8 steps
-    r_losses, resumed, seconds, _ = run_arcface_cli(arc_args(
+    r_losses, resumed, seconds, _, _ = run_arcface_cli(arc_args(
         *ARC_CONFIGS["dense"], "--num_steps", "8", "--output", out,
         "--resume"))
     last = ckpt.latest_step(cdir)
@@ -1416,7 +1504,7 @@ def phase_arcface_path(tmp: str) -> dict[str, int]:
 
     # -- sparse, 3,000,000 classes at sample_rate 0.1
     bb_peak = backbone_peak_bytes()
-    s_losses, s_launches, seconds, peak = run_arcface_cli(arc_args(
+    s_losses, s_launches, seconds, peak, _ = run_arcface_cli(arc_args(
         *ARC_CONFIGS["sparse"], "--num_steps", str(steps)))
     table = 3_000_000 * ARC_DIM * 4
     # table + momentum, the backbone's own peak, and 3 GiB for the sampled
@@ -2482,6 +2570,409 @@ def phase_extract_audio(tmp: str) -> None:
     if not rel <= PREPROC_RTOL:
         fail(f"DeepSpeech card vs CPU: {rel} of the scale")
 
+# [22]-[26], the rest of arcface: the other backbone families and the bf16
+# route (the JAX CLI's default) through train_arcface.main at batch 256,
+# in-training verification and the export, and the two evaluation CLIs
+ARC_FAMILIES = {
+    22: ("mbf", ["--fp32", "--num_classes", "1000000"]),
+    # the reference's ViT recipe (AdamW at 1e-3, PartialFC at 0.3) at about
+    # WebFace42M's 2.06M identities, in bf16
+    23: ("vit_t", ["--optimizer", "adamw", "--lr", "1e-3", "--sample_rate",
+                   "0.3", "--num_classes", "2000000"]),
+    # the JAX CLI's default command: bf16 trunk and head products
+    24: ("iresnet50", ["--num_classes", "1000000"]),
+}
+#   card vs CPU, one bf16 arcface step (iresnet50, batch 8): each device
+#   rounds every conv output to bf16 with its own algorithms. The card's
+#   readings barely move with the batch (backbone 0.107 at batch 8, 0.102 at
+#   32 and 64; table 0.026, 0.024, 0.024): the spread is bf16's own, as
+#   JAX's bf16 steps lie 0.085 from its fp32 steps (tests/
+#   test_torch_arcface.py). So batch 8, and bounds about 2.5x its readings
+#   (PERF.md §5): the loss to 1e-2, the backbone's gradients together to
+#   0.25, the median tensor to 0.3, the worst to 0.5, the table to 0.07
+ARC_BF16_STEP_BATCH = 8
+ARC_BF16_LOSS_RTOL = 1e-2
+ARC_BF16_GRAD_L2_RTOL = 0.25
+ARC_BF16_MEDIAN_L2_RTOL = 0.3
+ARC_BF16_TENSOR_L2_RTOL = 0.5
+ARC_BF16_TABLE_L2_RTOL = 0.07
+#   card vs CPU embeddings of the evaluation CLIs (fp32): relative to the
+#   embeddings' scale; template cosines absolute
+EVAL_EMB_RTOL = 1e-4
+EVAL_SCORE_ATOL = 1e-4
+
+
+def arc_family_args(network: str, *extra):
+    from hfa_gp_tpu_torch.cli import train_arcface
+    return train_arcface.build_argparser().parse_args([
+        "--network", network, "--batch_size", str(ARC_BATCH), "--device",
+        "cuda", *extra])
+
+
+def phase_arcface_family(tag: int) -> dict:
+    """[22]-[24] train_arcface.main on one more configuration: finite
+    losses that do not rise, one K5 and one K6 launch a step, the CLI's
+    samples/s and the peak device memory. For the ViT, masking once a step
+    and drop path on both branches of every block after the first."""
+    from hfa_gp_tpu_torch.models.arcface import vit
+    network, flags = ARC_FAMILIES[tag]
+    steps = 6
+    args = arc_family_args(network, *flags, "--num_steps", str(steps))
+    calls = {"random_masking": 0, "drop_path": 0}
+    real = {k: getattr(vit, k) for k in calls}
+
+    def counted(name):
+        def fn(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return fn
+
+    for k in calls:
+        setattr(vit, k, counted(k))
+    try:
+        losses, launches, seconds, peak, sps = run_arcface_cli(args)
+    finally:
+        for k, fn in real.items():
+            setattr(vit, k, fn)
+    print(f"[{tag}] arcface path, {network}, {args.num_classes:,} classes, "
+          f"sample_rate {args.sample_rate}, {args.optimizer}, "
+          f"{'fp32' if args.fp32 else 'bf16'}, batch {ARC_BATCH}: {steps} "
+          f"steps in {seconds:.2f} s (init and first-use costs included), "
+          f"losses {[round(x, 4) for x in losses]}, {sps:.3f} samples/s "
+          f"(the CLI's clock, the first step left out), peak "
+          f"{peak / GIB:.3f} GiB, launches {launches}, ViT draws {calls}",
+          flush=True)
+    check_arcface_losses(f"[{tag}] {network}", losses, args.num_classes,
+                         steps)
+    expected = {**NO_LAUNCHES, "flash_ce_fwd": steps, "flash_ce_bwd": steps}
+    if launches != expected:
+        fail(f"[{tag}] {network} launched {launches}, expected {expected}")
+    if network.startswith("vit"):
+        depth = vit.VIT_CONFIGS[network][2]
+        want = {"random_masking": steps,
+                "drop_path": steps * 2 * (depth - 1)}
+        if calls != want:
+            fail(f"[{tag}] ViT masking and drop path ran {calls}, expected "
+                 f"{want}")
+    return {"launches": launches, "samples_per_s": sps,
+            "peak_gib": peak / GIB}
+
+
+def phase_bf16_step_card_vs_cpu(batch: int = ARC_BF16_STEP_BATCH) -> None:
+    """[24] loss and every gradient of one bf16 arcface step (bf16 trunk,
+    bf16 operands of the head's products: K5/K6 with bf16=1 on the card),
+    card vs CPU, from the same seeded state and batch: the loss, the
+    backbone's gradients together and the median one, the worst tensor,
+    and the table's gradient, each to its own bound. `batch` other than 8
+    gives the readings of PERF.md §6 at other batches."""
+    from hfa_gp_tpu_torch.models.arcface import registry
+    from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
+    from hfa_gp_tpu_torch.train import arcface as arc
+    classes, bf = 10_000, torch.bfloat16
+    pfc = PartialFC(classes, ARC_DIM, matmul_dtype=bf)
+    tx, fc_tx = arc.make_optimizers(4)
+    g = torch.Generator().manual_seed(SEED + 4)
+    images = torch.randn((batch, 112, 112, 3), generator=g)
+    labels = torch.randint(0, classes, (batch,), generator=g)
+    out = {}
+    table = None
+    for dev in ("cuda", "cpu"):
+        state = arc.init_state(torch.Generator().manual_seed(SEED), pfc, tx,
+                               fc_tx, ARC_NET, dev)
+        if table is None:
+            table = state.fc_weight.cpu()
+        else:
+            state.fc_weight.copy_(table)
+        t0 = time.perf_counter()
+        w = state.fc_weight.detach().to(dev).requires_grad_(True)
+        emb, _ = registry.backbone_apply(ARC_NET, state.backbone,
+                                         state.batch_stats, images.to(dev),
+                                         train=True, dtype=bf)
+        loss = pfc.loss(w, emb, labels.to(dev))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in
+                 state.backbone.named_parameters() if p.grad is not None}
+        out[dev] = (loss.item(), grads, w.grad.cpu(),
+                    time.perf_counter() - t0)
+        del state, w, emb, loss
+    (l_gpu, g_gpu, w_gpu, t_gpu), (l_cpu, g_cpu, w_cpu, t_cpu) = \
+        out["cuda"], out["cpu"]
+    # the gradients that are zero by construction ([11]) are left out
+    held = [n for n in g_cpu if not (n in ("fc.bias", "bn2.bias")
+                                     or n.endswith(("bn3.bias",
+                                                    "down_bn.bias")))]
+    l2 = {n: ((g_gpu[n] - g_cpu[n]).norm() / g_cpu[n].norm()).item()
+          for n in held}
+    whole = (torch.cat([(g_gpu[n] - g_cpu[n]).flatten() for n in held])
+             .norm() / torch.cat([g_cpu[n].flatten() for n in held]).norm()
+             ).item()
+    table_l2 = ((w_gpu - w_cpu).norm() / w_cpu.norm()).item()
+    worst = max(l2, key=l2.get)
+    median = float(np.median(list(l2.values())))
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"[24] one bf16 arcface step, {ARC_NET}, {classes} classes, batch "
+          f"{batch}, card vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f} (rel "
+          f"{loss_rel:.3e}, bound {ARC_BF16_LOSS_RTOL:g}); relative L2 of "
+          f"the {len(held)} backbone gradients together {whole:.4e} (bound "
+          f"{ARC_BF16_GRAD_L2_RTOL:g}), median a tensor {median:.4e} (bound "
+          f"{ARC_BF16_MEDIAN_L2_RTOL:g}), worst {worst} {l2[worst]:.4e} "
+          f"(bound {ARC_BF16_TENSOR_L2_RTOL:g}); the table's {table_l2:.4e} (bound "
+          f"{ARC_BF16_TABLE_L2_RTOL:g}); card {t_gpu:.2f} s, CPU "
+          f"{t_cpu:.2f} s", flush=True)
+    if not all(torch.isfinite(x).all() for x in g_gpu.values()) \
+            or not torch.isfinite(w_gpu).all():
+        fail("non-finite bf16 arcface gradient on the card")
+    if not loss_rel <= ARC_BF16_LOSS_RTOL:
+        fail(f"bf16 step: card loss {l_gpu} vs CPU {l_cpu}")
+    if not (whole <= ARC_BF16_GRAD_L2_RTOL
+            and median <= ARC_BF16_MEDIAN_L2_RTOL
+            and l2[worst] <= ARC_BF16_TENSOR_L2_RTOL):
+        fail(f"bf16 step: backbone gradients card vs CPU {whole}, median "
+             f"{median}, {worst} {l2[worst]}")
+    if not table_l2 <= ARC_BF16_TABLE_L2_RTOL:
+        fail(f"bf16 step: the table's gradient card vs CPU {table_l2}")
+
+
+def write_pairs_bin(path: str, n_pairs: int, seed: int) -> str:
+    """An LFW-style .bin: a pickled (PNG bytes list, issame list) of
+    n_pairs pairs of 112² crops, a base and the same base with a little
+    noise (issame) or two bases."""
+    import io
+    import pickle
+
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    bins, issame = [], []
+    for i in range(n_pairs):
+        a = rng.integers(0, 256, (112, 112, 3))
+        same = i % 2 == 0
+        b = a + rng.integers(-8, 9, a.shape) if same \
+            else rng.integers(0, 256, a.shape)
+        for img in (a, b):
+            buf = io.BytesIO()
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                buf, format="PNG")
+            bins.append(buf.getvalue())
+        issame.append(same)
+    with open(path, "wb") as f:
+        pickle.dump((bins, issame), f)
+    return path
+
+
+class _Records(logging.Handler):
+    """A logging handler that keeps the messages."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.lines.append(record.getMessage())
+
+
+def phase_val_bin_export(tmp: str) -> dict:
+    """[25] train_arcface.main --val_bin --verbose 2 --export (mbf, bf16,
+    100,000 classes, 4 steps) on a 64-pair synthetic .bin: an accuracy line
+    at steps 2 and 4; model.pt2 loaded with torch.export.load equal to
+    backbone_apply at batch 1 and 64; then eval_verification on model.npz,
+    card vs CPU; then pairs/s of eval_verification --synthetic with
+    iresnet50 on the card."""
+    from hfa_gp_tpu_torch.cli import eval_verification
+    from hfa_gp_tpu_torch.models.arcface import registry
+    from hfa_gp_tpu_torch.utils.observability import LOGGER_NAME
+    net, steps, n_pairs = "mbf", 4, 64
+    out = os.path.join(tmp, "val")
+    vbin = write_pairs_bin(os.path.join(tmp, "pairs.bin"), n_pairs, SEED)
+    records = _Records()
+    logger = logging.getLogger(LOGGER_NAME)
+    logger.addHandler(records)
+    try:
+        losses, launches, seconds, _, _ = run_arcface_cli(arc_family_args(
+            net, "--num_classes", "100000", "--num_steps", str(steps),
+            "--val_bin", vbin, "--verbose", "2", "--output", out,
+            "--export"))
+    finally:
+        logger.removeHandler(records)
+    acc_lines = [ln for ln in records.lines if "verification acc" in ln]
+    files = sorted(os.listdir(out))
+    with open(os.path.join(out, "model_cost.json")) as f:
+        cost = json.load(f)
+    print(f"[25] train_arcface --val_bin ({n_pairs} pairs) --verbose 2 "
+          f"--export, {net}, bf16, {steps} steps in {seconds:.2f} s: losses "
+          f"{[round(x, 4) for x in losses]}, {acc_lines}, {files}, "
+          f"{cost['flops'] / 1e9:.3f} GFLOP an image, launches {launches}",
+          flush=True)
+    if [ln.split("]")[0] for ln in acc_lines] != ["[step 2", "[step 4"]:
+        fail(f"--val_bin logged {acc_lines}")
+    if not {"model.pt2", "model.npz", "model_cost.json"} <= set(files) \
+            or not cost["flops"] > 0:
+        fail(f"--export wrote {files}, {cost}")
+    if launches != {**NO_LAUNCHES, "flash_ce_fwd": steps,
+                    "flash_ce_bwd": steps}:
+        fail(f"[25] launched {launches}")
+
+    # the exported program against backbone_apply on the saved state
+    saved = torch.load(os.path.join(out, "checkpoint", f"{steps:06d}"),
+                       weights_only=True, map_location="cuda")
+    params, stats = registry.init_backbone(torch.Generator(), net,
+                                           device="cuda")
+    params.load_state_dict(saved["backbone"])
+    stats.load_state_dict(saved["batch_stats"])
+    program = torch.export.load(os.path.join(out, "model.pt2")).module()
+    errs = []
+    for b in (1, 64):
+        x = torch.randn((b, 112, 112, 3), device="cuda")
+        with torch.no_grad():
+            errs.append(rel_err(program(x), registry.backbone_apply(
+                net, params, stats, x))[1])
+    del saved, params, stats, program
+
+    # eval_verification on the exported npz, card and CPU
+    results, embs = {}, {}
+    img1 = eval_verification.load_bin(vbin)[0][:16]
+    for dev in ("cuda", "cpu"):
+        args = eval_verification.build_argparser().parse_args([
+            "--network", net, "--weights", os.path.join(out, "model.npz"),
+            "--bin", vbin, "--device", dev])
+        results[dev] = eval_verification.main(args)
+        p, st = eval_verification.load_backbone(net, args.weights,
+                                                torch.device(dev))
+        embs[dev] = torch.from_numpy(eval_verification.make_embed_fn(
+            net, p, st, torch.device(dev))(img1))
+    emb_rel = rel_err(embs["cuda"], embs["cpu"])[1]
+    (acc_g, _, thr_g), (acc_c, _, thr_c) = results["cuda"], results["cpu"]
+    logged = acc_lines[-1].split("acc ")[1].split(" ")[0]
+    print(f"     model.pt2 vs backbone_apply at batch 1 and 64: "
+          f"{[f'{e:.3e}' for e in errs]} of the scale (bound "
+          f"{EVAL_EMB_RTOL:g}); eval_verification on model.npz: card "
+          f"{results['cuda']}, CPU {results['cpu']}, last logged accuracy "
+          f"{logged}; embeddings card vs CPU {emb_rel:.3e} of the scale "
+          f"(bound {EVAL_EMB_RTOL:g})", flush=True)
+    if not max(errs) <= EVAL_EMB_RTOL or not emb_rel <= EVAL_EMB_RTOL:
+        fail(f"exported program {errs}, embeddings card vs CPU {emb_rel}")
+    # one pair may sit within rounding of a threshold of the 0.01 grid:
+    # at most one pair of one fold, and the threshold one grid step
+    if f"{acc_g:.4f}" != logged or abs(acc_g - acc_c) > 1.0 / n_pairs \
+            or abs(thr_g - thr_c) > 0.01 + 1e-9:
+        fail(f"eval_verification card {results['cuda']} vs CPU "
+             f"{results['cpu']}, logged {logged}")
+
+    # pairs/s of the protocol with iresnet50 on the card, warm
+    args = eval_verification.build_argparser().parse_args([
+        "--network", ARC_NET, "--synthetic", "--device", "cuda"])
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acc, _, _ = eval_verification.main(args)
+        times.append(time.perf_counter() - t0)
+    n = 2 * 128                        # synthetic_pairs' 128 identities
+    print(f"     eval_verification --synthetic, {ARC_NET} (random weights), "
+          f"{n} pairs on the card: {times[0]:.2f} s cold, {times[1]:.2f} s "
+          f"warm, {n / times[1]:.1f} pairs/s (host synthesis and the K-fold "
+          f"sweep included); accuracy {acc:.4f}", flush=True)
+    return {"pairs_per_s": n / times[1], "seconds": times[1]}
+
+
+def write_ijb_fixture(root: str, n_subjects: int) -> str:
+    """The insightface IJB layout of tests/test_ijb.py for n_subjects × 2
+    templates × 2 media: near-identical 130 × 120 crops of one random base
+    per subject, landmarks at the ArcFace points shifted by the crop's
+    offset, all template pairs, and a 1:N gallery (template 0 of each
+    subject) and probe (template 1)."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.preprocess.warp import ARCFACE_5PTS
+    meta, crop = os.path.join(root, "meta"), os.path.join(root, "loose_crop")
+    os.makedirs(meta)
+    os.makedirs(crop)
+    rng = np.random.default_rng(SEED)
+    bases = rng.integers(0, 255, (n_subjects, 130, 120, 3)).astype(np.uint8)
+    pts = " ".join(f"{v:.2f}" for v in
+                   (ARCFACE_5PTS + np.array([4.0, 9.0])).reshape(-1))
+    tid_mid, name_pts, subject = [], [], {}
+    for s in range(n_subjects):
+        for t in range(2):
+            tid = 2 * s + t
+            subject[tid] = s
+            for m in range(2):
+                name = f"s{s}_t{t}_m{m}.png"
+                img = bases[s].astype(np.int16) + rng.integers(
+                    -4, 5, bases[s].shape, dtype=np.int16)
+                Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                    os.path.join(crop, name))
+                tid_mid.append(f"{name} {tid} {m}")
+                name_pts.append(f"{name} {pts} 0.99")
+    tids = sorted(subject)
+    pairs = [f"{a} {b} {int(subject[a] == subject[b])}"
+             for i, a in enumerate(tids) for b in tids[i + 1:]]
+    for fname, lines in (
+            ("ijbc_face_tid_mid.txt", tid_mid),
+            ("ijbc_template_pair_label.txt", pairs),
+            ("ijbc_name_5pts_score.txt", name_pts),
+            ("ijbc_1N_gallery.txt", [f"{t} {s}" for t, s in subject.items()
+                                     if t % 2 == 0]),
+            ("ijbc_1N_probe.txt", [f"{t} {s}" for t, s in subject.items()
+                                   if t % 2 == 1])):
+        with open(os.path.join(meta, fname), "w") as f:
+            f.write("\n".join(lines))
+    return root
+
+
+def phase_eval_ijb(tmp: str) -> dict:
+    """[26] eval_ijb on a synthetic fixture of 20 subjects × 2 templates ×
+    2 media (random weights, flip test, norm and detector scores): every
+    same-subject pair above every cross-subject pair, rank-1 identification
+    1.0, the scores card vs CPU (mbf); then images/s on the card with
+    iresnet50, warm."""
+    from hfa_gp_tpu_torch.cli import eval_ijb
+    n_subjects = 20
+    root = write_ijb_fixture(os.path.join(tmp, "ijb"), n_subjects)
+    labels = np.loadtxt(os.path.join(root, "meta",
+                                     "ijbc_template_pair_label.txt"),
+                        dtype=np.int64, ndmin=2)[:, 2]
+    n_images = n_subjects * 4
+
+    def run(net: str, dev: str, job: str):
+        args = eval_ijb.build_argparser().parse_args([
+            "--image_path", root, "--network", net, "--canvas", "160",
+            "--batch_size", "64", "--result_dir", os.path.join(tmp, "res"),
+            "--job", job, "--device", dev])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = eval_ijb.main(args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        scores = np.load(os.path.join(tmp, "res", f"{job}_scores.npy"))
+        gap = float(scores[labels == 1].min() - scores[labels == 0].max())
+        return metrics, scores, gap, seconds
+
+    out = {dev: run("mbf", dev, f"mbf_{dev}") for dev in ("cuda", "cpu")}
+    diff = float(np.abs(out["cuda"][1] - out["cpu"][1]).max())
+    run(ARC_NET, "cuda", "r50_warmup")
+    m50, _, gap50, sec50 = run(ARC_NET, "cuda", "r50")
+    print(f"[26] eval_ijb, {n_subjects} subjects x 2 templates x 2 media "
+          f"({n_images} images, {len(labels)} template pairs), random "
+          f"weights: mbf card {out['cuda'][0]}, same-subject minus "
+          f"cross-subject score {out['cuda'][2]:.4f} (card) "
+          f"{out['cpu'][2]:.4f} (CPU); scores card vs CPU {diff:.3e} (bound "
+          f"{EVAL_SCORE_ATOL:g}); {ARC_NET} on the card: gap {gap50:.4f}, "
+          f"{sec50:.2f} s warm, {n_images / sec50:.1f} images/s (PNG "
+          f"decoding on the host included), card {out['cuda'][3]:.2f} s "
+          f"and CPU {out['cpu'][3]:.2f} s for mbf", flush=True)
+    for name, (metrics, _, gap, _) in (("mbf card", out["cuda"]),
+                                       ("mbf CPU", out["cpu"]),
+                                       (f"{ARC_NET} card", (m50, None, gap50,
+                                                            None))):
+        if not gap > 0 or metrics["rank_k"]["1"] != 1.0 \
+                or metrics["tar_at_far"]["1e-01"] != 1.0:
+            fail(f"[26] {name}: same-subject pairs not above the rest "
+                 f"(gap {gap}, {metrics})")
+    if not diff <= EVAL_SCORE_ATOL:
+        fail(f"[26] scores card vs CPU differ by {diff}")
+    return {"images_per_s": n_images / sec50, "seconds": sec50}
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2522,13 +3013,22 @@ def main() -> None:
         phase_process_video(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_extract_audio(tmp)
+    families = {tag: phase_arcface_family(tag) for tag in ARC_FAMILIES}
+    phase_bf16_step_card_vs_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_val_bin_export(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_eval_ijb(tmp)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
     # reenactment path's count beside it), the arcface path's dense run
     # (6 steps), the probe's entry point
     for k in kernels:
-        if k["name"].startswith("flash_ce"):
+        if k["name"].endswith("_bf16"):
+            # the JAX CLI's default command, [24]
+            k["launches"] = families[24]["launches"][k["name"][:-5]]
+        elif k["name"].startswith("flash_ce"):
             k["launches"] = arcface_launches[k["name"]]
         elif k["name"] == "triplane_probe":
             k["launches"] = probe_launches[k["name"]]

@@ -12,9 +12,10 @@ as NCHW inside; conv weights are OIHW. The FC after the last stage flattens
 (c, h, w) here where the JAX package flattens (h, w, c): `convert.py`
 permutes its columns.
 
-BatchNorm follows the JAX package, not `nn.BatchNorm2d`: the running
-variance takes the biased batch variance (torch's takes the unbiased
-one), momentum 0.1 in the torch convention, eps 1e-5, statistics in fp32.
+BatchNorm follows the JAX package, not `nn.BatchNorm2d` (`norm.py`): the
+running variance takes the biased batch variance (torch's takes the
+unbiased one), momentum 0.1 in the torch convention, eps 1e-5, statistics
+in fp32 whatever the trunk's dtype.
 Deep stages run as a plain loop: the JAX package's remat'd `lax.scan`
 exists for XLA's compile time.
 """
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.convert import ParamTree
+from .norm import batch_norm
 
 IRESNET_LAYERS = {
     "iresnet18": (2, 2, 2, 2),
@@ -40,7 +42,6 @@ IRESNET_LAYERS = {
 
 _CHANNELS = (64, 128, 256, 512)
 _BN_EPS = 1e-5
-_BN_MOMENTUM = 0.1   # torch convention: new = (1-m)*old + m*batch
 
 
 def _conv_init(g: torch.Generator, k: int, cin: int, cout: int
@@ -58,28 +59,8 @@ def _init_bn_stats(c: int) -> dict[str, torch.Tensor]:
     return {"mean": torch.zeros(c), "var": torch.ones(c)}
 
 
-def _bn(p, stats, x: torch.Tensor, train: bool):
-    """x (B, C, H, W) or (B, C). Returns (y, new_stats)."""
-    if not train:
-        y = F.batch_norm(x, stats["mean"], stats["var"], p["scale"],
-                         p["bias"], False, 0.0, _BN_EPS)
-        return y, stats
-    # one fused pass: normalises with the biased batch variance and hands
-    # back the batch mean and 1/sqrt(var + eps), from which the running
-    # moments are updated by hand
-    y, mean, invstd = torch.native_batch_norm(
-        x, p["scale"], p["bias"], None, None, True, 0.0, _BN_EPS)
-    with torch.no_grad():
-        var = torch.clamp(1.0 / (invstd * invstd) - _BN_EPS, min=0.0)
-        new_stats = {
-            "mean": (1 - _BN_MOMENTUM) * stats["mean"] + _BN_MOMENTUM * mean,
-            "var": (1 - _BN_MOMENTUM) * stats["var"] + _BN_MOMENTUM * var,
-        }
-    return y, new_stats
-
-
 def _prelu(p, x: torch.Tensor) -> torch.Tensor:
-    return F.prelu(x, p["alpha"])
+    return F.prelu(x, p["alpha"].to(x.dtype))
 
 
 def _conv(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
@@ -105,16 +86,18 @@ def _init_block(g: torch.Generator, cin: int, cout: int, stride: int):
 
 
 def _block(p, st, x: torch.Tensor, stride: int, train: bool):
-    out, s1 = _bn(p["bn1"], st["bn1"], x, train)
-    out = _conv(out, p["conv1"])
-    out, s2 = _bn(p["bn2"], st["bn2"], out, train)
+    dt = x.dtype
+    out, s1 = batch_norm(p["bn1"], st["bn1"], x, train, _BN_EPS)
+    out = _conv(out, p["conv1"].to(dt))
+    out, s2 = batch_norm(p["bn2"], st["bn2"], out, train, _BN_EPS)
     out = _prelu(p["prelu"], out)
-    out = _conv(out, p["conv2"], stride)
-    out, s3 = _bn(p["bn3"], st["bn3"], out, train)
+    out = _conv(out, p["conv2"].to(dt), stride)
+    out, s3 = batch_norm(p["bn3"], st["bn3"], out, train, _BN_EPS)
     new_st = {"bn1": s1, "bn2": s2, "bn3": s3}
     if "down_conv" in p:
-        idn = _conv(x, p["down_conv"], stride)
-        idn, new_st["down_bn"] = _bn(p["down_bn"], st["down_bn"], idn, train)
+        idn = _conv(x, p["down_conv"].to(dt), stride)
+        idn, new_st["down_bn"] = batch_norm(p["down_bn"], st["down_bn"],
+                                            idn, train, _BN_EPS)
     else:
         idn = x
     return out + idn, new_st
@@ -153,26 +136,37 @@ def init_iresnet(generator: torch.Generator, name: str = "iresnet50",
 
 
 def iresnet_apply(params, batch_stats, x: torch.Tensor,
-                  name: str = "iresnet50", *, train: bool = False):
-    """x: (B, 112, 112, 3) in [-1, 1] → (B, 512) embeddings
-    [, new_batch_stats (a nested dict of tensors) when train]."""
+                  name: str = "iresnet50", *, train: bool = False,
+                  dtype: torch.dtype = torch.float32):
+    """x: (B, 112, 112, 3) in [-1, 1] → (B, 512) fp32 embeddings
+    [, new_batch_stats (a nested dict of tensors) when train].
+
+    `dtype` is the trunk's: the input and the conv and FC weights are cast
+    to it, BN runs as an fp32 island (`norm.batch_norm`) whose output goes
+    back to it, as in the JAX package."""
     layers = IRESNET_LAYERS[name]
-    x = x.to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    x = x.to(dtype).permute(0, 3, 1, 2).contiguous()
     new_st: dict[str, Any] = {}
-    h = _conv(x, params["stem_conv"])
-    h, new_st["stem_bn"] = _bn(params["stem_bn"], batch_stats["stem_bn"], h,
-                               train)
+    h = _conv(x, params["stem_conv"].to(dtype))
+    h, new_st["stem_bn"] = batch_norm(params["stem_bn"],
+                                      batch_stats["stem_bn"], h, train,
+                                      _BN_EPS)
     h = _prelu(params["stem_prelu"], h)
     for stage, n in enumerate(layers):
         for i in range(n):
             k = f"s{stage}_b{i}"
             h, new_st[k] = _block(params[k], batch_stats[k], h,
                                   2 if i == 0 else 1, train)
-    h, new_st["bn2"] = _bn(params["bn2"], batch_stats["bn2"], h, train)
+    h, new_st["bn2"] = batch_norm(params["bn2"], batch_stats["bn2"], h,
+                                  train, _BN_EPS)
     h = h.flatten(1)                                   # (c, h, w) order
-    h = F.linear(h, params["fc"]["weight"], params["fc"]["bias"])
-    h, new_st["features_bn"] = _bn(params["features_bn"],
-                                   batch_stats["features_bn"], h, train)
+    # the product in the trunk's dtype; its fp32 bias makes the sum fp32,
+    # as JAX's type promotion does
+    h = F.linear(h, params["fc"]["weight"].to(dtype)) + params["fc"]["bias"]
+    h, new_st["features_bn"] = batch_norm(params["features_bn"],
+                                          batch_stats["features_bn"], h,
+                                          train, _BN_EPS)
+    h = h.float()
     if train:
         return h, new_st
     return h

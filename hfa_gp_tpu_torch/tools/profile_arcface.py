@@ -1,7 +1,8 @@
 """Where one arcface training step spends its time on the card, at full
-width (iresnet50, 512-d embeddings, fp32, TF32 off).
+width (512-d embeddings, TF32 off; iresnet50 in fp32 unless told other).
 
-    python -m hfa_gp_tpu_torch.tools.profile_arcface \
+    python -m hfa_gp_tpu_torch.tools.profile_arcface [--network iresnet50] \
+        [--dtype fp32|bf16] [--optimizer sgd|adamw] \
         [--num_classes 1000000] [--sample_rate 1.0] [--batch 256] [--steps 3]
     python -m hfa_gp_tpu_torch.tools.profile_arcface --ablate_ce_backward
 
@@ -122,6 +123,12 @@ def main_ablate(args) -> dict[str, float]:
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--network", type=str, default="iresnet50")
+    p.add_argument("--dtype", type=str, default="fp32",
+                   choices=["fp32", "bf16"],
+                   help="the trunk's dtype and the head products' operands "
+                        "(bf16: train_arcface without --fp32)")
+    p.add_argument("--optimizer", type=str, default="sgd",
+                   choices=["sgd", "adamw"])
     p.add_argument("--num_classes", type=int, default=1_000_000)
     p.add_argument("--sample_rate", type=float, default=1.0)
     p.add_argument("--batch", type=int, default=256)
@@ -139,12 +146,18 @@ def main(args) -> None:
         main_ablate(args)
         return
     dev = torch.device("cuda")
-    pfc = PartialFC(args.num_classes, 512, sample_rate=args.sample_rate)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    pfc = PartialFC(args.num_classes, 512, sample_rate=args.sample_rate,
+                    matmul_dtype=torch.bfloat16 if args.dtype == "bf16"
+                    else None)
     sparse = args.sample_rate < 1.0
-    tx, fc_tx = arc.make_optimizers(100, lr=0.1, warmup_steps=2)
+    adamw = args.optimizer == "adamw"          # chip_smoke.py [23]'s recipe
+    tx, fc_tx = arc.make_optimizers(
+        100, lr=1e-3 if adamw else 0.1, warmup_steps=2,
+        optimizer=args.optimizer, weight_decay=0.1 if adamw else 5e-4)
     state = arc.init_state(torch.Generator().manual_seed(SEED), pfc, tx,
                            fc_tx, args.network, dev)
-    step_fn = arc.make_train_step(pfc, tx, fc_tx, args.network)
+    step_fn = arc.make_train_step(pfc, tx, fc_tx, args.network, dtype=dtype)
     gen = torch.Generator(dev).manual_seed(SEED)
     imgs, labs = train_arcface.synth_batch(args.batch, args.num_classes, gen,
                                            dev)
@@ -164,7 +177,7 @@ def main(args) -> None:
         out = {}
         t_bb = events_ms(lambda: out.update(emb=registry.backbone_apply(
             args.network, state.backbone, state.batch_stats, imgs,
-            train=True)[0]))
+            train=True, dtype=dtype, generator=gen)[0]))
         t_sample = 0.0
         if sparse:
             def sample():
@@ -191,8 +204,9 @@ def main(args) -> None:
             stages.setdefault(k, []).append(v)
     med = {k: float(np.median(v)) for k, v in stages.items()}
     whole = sum(med.values())
-    print(f"stages of one arcface step, {args.network}, {args.num_classes} "
-          f"classes, sample_rate {args.sample_rate}, batch {args.batch}, "
+    print(f"stages of one arcface step, {args.network}, {args.dtype}, "
+          f"{args.optimizer}, {args.num_classes} classes, sample_rate "
+          f"{args.sample_rate}, batch {args.batch}, "
           f"median of {args.steps} (CUDA events):")
     for k, v in med.items():
         print(f"  {k:26s} {v:9.3f} ms  {100 * v / whole:5.1f} % of "

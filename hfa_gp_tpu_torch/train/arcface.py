@@ -1,5 +1,8 @@
-"""Face-recognition trainer: an iresnet backbone under a PartialFC head
-(port of hfa_gp_tpu/train/arcface.py to one device).
+"""Face-recognition trainer: a backbone (iresnet, MobileFaceNet or ViT)
+under a PartialFC head (port of hfa_gp_tpu/train/arcface.py to one
+device). The backbone's trunk runs in fp32 or bf16 (`make_train_step`'s
+`dtype`, the JAX package's AMP analog); its parameters, gradients and
+optimizer state stay fp32.
 
 SGD (momentum 0.9, weight decay 5e-4) or AdamW with the poly schedule and
 the margin softmax. The backbone's optimizer is `torch.optim.SGD` /
@@ -203,8 +206,14 @@ def update_head(pfc: PartialFC, fc_tx: FCOptimizer, state: ArcFaceState,
 
 
 def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
-                    fc_tx: FCOptimizer, network: str = "iresnet50"):
+                    fc_tx: FCOptimizer, network: str = "iresnet50",
+                    dtype: torch.dtype = torch.float32):
     """step_fn(state, images, labels, generator, index=None) → {"loss"}.
+
+    `dtype` is the backbone trunk's (torch.bfloat16 for the JAX CLI's
+    default); the head's products take `pfc.matmul_dtype`. The step's
+    generator also feeds the ViTs' drop path and masking (drawn before the
+    head's sampling; the other backbones draw nothing from it).
 
     sample_rate == 1: the dense head (full-table gradient).
     sample_rate < 1: the row-sparse head. It differentiates with respect
@@ -220,7 +229,8 @@ def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
                 index: torch.Tensor | None = None) -> dict[str, Any]:
         state.optimizer.zero_grad(set_to_none=True)
         emb, new_stats = registry.backbone_apply(
-            network, state.backbone, state.batch_stats, images, train=True)
+            network, state.backbone, state.batch_stats, images, train=True,
+            dtype=dtype, generator=generator)
         if sparse:
             if index is None:
                 index = pfc.sample_indices(labels, generator)

@@ -67,6 +67,23 @@ def load_npz(path: str) -> dict[str, Any]:
     return tree
 
 
+def save_npz(tree: dict[str, Any], path: str) -> None:
+    """Nested dict of numpy arrays → flat npz with `/`-joined keys, the
+    layout `load_npz` (and the JAX package's `pytree_io`) reads."""
+    flat: dict[str, np.ndarray] = {}
+
+    def walk(node: dict[str, Any], prefix: str) -> None:
+        for k, v in node.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                walk(v, key)
+            else:
+                flat[key] = np.asarray(v)
+
+    walk(tree, "")
+    np.savez(path, **flat)
+
+
 def _convert_leaf(name: str, v) -> torch.Tensor:
     t = torch.from_numpy(np.array(v, dtype=np.float32))
     if name == "weight" and t.ndim == 4:

@@ -146,8 +146,11 @@ def test_init_iresnet_has_the_jax_tree(name):
 
 
 def test_registry_names_and_refusals():
+    """Every name of the JAX registry resolves in the port (MobileFaceNet
+    and the ViTs are ported); only an unknown name is refused."""
+    from hfa_gp_tpu.models.arcface import registry as jreg
     assert registry.canonical_name("r50") == "iresnet50"
-    assert registry.backbone_names() == sorted(jres.IRESNET_LAYERS)
+    assert registry.backbone_names() == jreg.backbone_names()
     g = torch.Generator().manual_seed(0)
     p, st = registry.init_backbone(g, "r18")
     x = torch.zeros((2, 112, 112, 3))
@@ -155,11 +158,13 @@ def test_registry_names_and_refusals():
     assert emb.shape == (2, 512)
     emb_t, new_st = registry.backbone_apply("iresnet18", p, st, x, train=True)
     assert emb_t.shape == (2, 512) and "s3_b1" in new_st
-    for name in ("mbf", "mobilefacenet", "mbf_large", "vit_t", "vit_b"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            registry.init_backbone(g, name)
+    for name in ("mbf", "mobilefacenet", "vit_t"):
+        p, st = registry.init_backbone(g, name)
+        assert registry.backbone_apply(name, p, st, x).shape == (2, 512)
     with pytest.raises(ValueError, match="unknown backbone"):
         registry.backbone_apply("nope", p, st, x)
+    with pytest.raises(ValueError, match="unknown backbone"):
+        registry.init_backbone(g, "vit_h")
 
 
 # -- schedule and optimizers ---------------------------------------------------
@@ -318,24 +323,41 @@ def _both_states(mesh, jpfc_, tpfc_, jtx, jfc, ttx, tfc, sparse, seed=0):
     return jstate, tstate
 
 
-@pytest.mark.parametrize("mode", ["dense-sgd", "sparse-sgd", "sparse-adamw"])
+@pytest.mark.parametrize("mode", ["dense-sgd", "sparse-sgd", "sparse-adamw",
+                                  "dense-sgd-bf16"])
 def test_three_train_steps_match_jax(mode):
+    """Three steps from one state on the same batches. "bf16": the JAX
+    CLI's default, a bf16 trunk and bf16 operands of the head's product in
+    both packages; each rounds its own conv outputs to bf16, so the losses
+    are held to 1e-2 (1.2e-3 seen; PARITY.md delta 1 puts bf16 at about
+    2e-2 of fp32) and the running variance to 2e-2 of its scale. What the
+    three updates moved is held in relative L2: the backbone as a whole to
+    0.25 and the median tensor to 0.3 (0.098 and 0.111 seen), the table to
+    0.08 (0.029 seen). JAX's own bf16 steps lie as far from its fp32 steps
+    (0.085, 0.098, 0.024), where the fp32 steps of both packages agree to
+    0.0033 and 1.2e-4; a table update off by a fifth fails."""
     sparse, kind = mode.startswith("sparse"), mode.split("-")[1]
+    bf16 = mode.endswith("bf16")
     classes, rate = 512, 0.25 if sparse else 1.0
     mesh = mesh_mod.make_mesh(n_data=1, n_model=1)
     kw = dict(lr=0.05 if kind == "sgd" else 1e-3, warmup_steps=1,
               optimizer=kind)
     jpfc_ = JaxPartialFC(mesh, classes, 512, sample_rate=rate,
-                         ce_pallas=False)
+                         ce_pallas=False,
+                         matmul_dtype=jnp.bfloat16 if bf16 else None)
     jtx, jfc = jarc.make_optimizers(4, **kw)
-    jstep = jarc.make_train_step(jpfc_, jtx, jfc, NET, dtype=jnp.float32,
-                                 donate=False)
-    tpfc_ = PartialFC(classes, 512, sample_rate=rate)
+    jstep = jarc.make_train_step(
+        jpfc_, jtx, jfc, NET, dtype=jnp.bfloat16 if bf16 else jnp.float32,
+        donate=False)
+    tpfc_ = PartialFC(classes, 512, sample_rate=rate,
+                      matmul_dtype=torch.bfloat16 if bf16 else None)
     ttx, tfc = arc.make_optimizers(4, **kw)
-    tstep = arc.make_train_step(tpfc_, ttx, tfc, NET)
+    tstep = arc.make_train_step(
+        tpfc_, ttx, tfc, NET, dtype=torch.bfloat16 if bf16 else torch.float32)
     jstate, tstate = _both_states(mesh, jpfc_, tpfc_, jtx, jfc, ttx, tfc,
                                   sparse)
     table0 = tstate.fc_weight.numpy().copy()
+    jparams0 = jstate.backbone
     rng = np.random.default_rng(7)
     j_losses, t_losses = [], []
     with jax.sharding.set_mesh(mesh):
@@ -354,13 +376,15 @@ def test_three_train_steps_match_jax(mode):
                        None, index=index)
             j_losses.append(float(jm["loss"]))
             t_losses.append(float(tm["loss"]))
-    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-3)
+    np.testing.assert_allclose(t_losses, j_losses,
+                               rtol=1e-2 if bf16 else 1e-3)
     assert tstate.step == int(jstate.step) == 3
     # running moments and the table after three updates
     _assert_close(tstate.batch_stats["s1_b0"]["bn2"]["var"].numpy(),
-                  jstate.batch_stats["s1_b0"]["bn2"]["var"], "bn var", 1e-3)
+                  jstate.batch_stats["s1_b0"]["bn2"]["var"], "bn var",
+                  2e-2 if bf16 else 1e-3)
     assert not np.array_equal(tstate.fc_weight.numpy(), table0)
-    if kind == "sgd":
+    if kind == "sgd" and not bf16:
         _assert_close(tstate.fc_weight.numpy(), jstate.fc_weight, "table",
                       1e-3)
         jmom = jstate.fc_opt_state["mom"] if sparse \
@@ -369,6 +393,23 @@ def test_three_train_steps_match_jax(mode):
         # train-mode BN at batch 4 makes of the rounding differences
         _assert_close(tstate.fc_opt_state["mom"].numpy(), jmom, "momentum",
                       5e-3)
+    if bf16:
+        # what the three updates moved, against what JAX's moved
+        tp, _ = convert.backbone_to_jax(NET, tstate.backbone,
+                                        tstate.batch_stats)
+        assert jax.tree.structure(tp) == jax.tree.structure(jparams0)
+        moved = [(t - j0, j - j0) for t, j, j0 in zip(
+            jax.tree.leaves(tp), jax.tree.leaves(_np_tree(jstate.backbone)),
+            jax.tree.leaves(_np_tree(jparams0)))]
+        rel = [np.linalg.norm(t - j) / np.linalg.norm(j) for t, j in moved
+               if np.linalg.norm(j) > 0]
+        whole = (np.sqrt(sum(np.sum((t - j) ** 2) for t, j in moved))
+                 / np.sqrt(sum(np.sum(j ** 2) for _, j in moved)))
+        jt = np.asarray(jstate.fc_weight) - table0
+        table = (np.linalg.norm(tstate.fc_weight.numpy() - table0 - jt)
+                 / np.linalg.norm(jt))
+        assert whole <= 0.25 and np.median(rel) <= 0.3, (whole, rel)
+        assert table <= 0.08, table
     if sparse:
         touched = (tstate.fc_opt_state["mom" if kind == "sgd" else "m"]
                    .abs().sum(1) > 0).sum()
@@ -467,12 +508,9 @@ def test_checkpoint_round_trip_of_an_arcface_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    ((), "bf16"), (("--fp32", "--rec", "x.rec"), "--rec"),
-    (("--fp32", "--val_bin", "lfw.bin"), "--val_bin"),
-    (("--fp32", "--export"), "--export"),
+    (("--fp32", "--rec", "x.rec"), "--rec"),
     (("--fp32", "--n_model", "2"), "--n_model"),
-    (("--fp32", "--num_processes", "2"), "several processes"),
-    (("--fp32", "--network", "mbf"), "not ported")])
+    (("--fp32", "--num_processes", "2"), "several processes")])
 def test_cli_refuses_what_is_not_ported(flags, match):
     args = train_arcface.build_argparser().parse_args(
         ["--device", "cpu", "--num_classes", "8", "--batch_size", "2",

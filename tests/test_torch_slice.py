@@ -248,6 +248,8 @@ DEVICE_CLIS = {
     "cli.run_recon_video_audio": [], "cli.train_arcface": ["--fp32"],
     "cli.process_video": ["--in_root", "frames"],
     "cli.extract_audio": ["--wav", "a.wav", "--out", "aud.npy"],
+    "cli.eval_verification": ["--synthetic"],
+    "cli.eval_ijb": ["--image_path", "ijb"],
     "tools.fit_selfrecon": [],
 }
 
@@ -303,7 +305,11 @@ def test_port_imports_no_jax():
         "'preprocess.align', 'preprocess.bfm', 'preprocess.pose', "
         "'preprocess.facerecon', 'preprocess.mtcnn', 'preprocess.pipeline', "
         "'preprocess.deepspeech', 'preprocess.warp', 'preprocess.losses', "
-        "'preprocess.convert', 'cli.process_video', 'cli.extract_audio'):\n"
+        "'preprocess.convert', 'cli.process_video', 'cli.extract_audio', "
+        "'models.arcface.mobilefacenet', 'models.arcface.vit', "
+        "'models.arcface.norm', 'models.arcface.verification', "
+        "'models.arcface.ijb', 'utils.export', 'cli.eval_verification', "
+        "'cli.eval_ijb'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
