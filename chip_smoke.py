@@ -115,7 +115,25 @@ result line:
  26. `cli.eval_ijb.main` on a synthetic IJB layout of 20 subjects × 2
      templates × 2 media with random weights: same-subject template pairs
      above cross-subject ones, rank-1 identification, scores card vs CPU
-     (mbf), and images/s on the card with iresnet50.
+     (mbf), and images/s on the card with iresnet50;
+ 27. `run_recon_video_rgb.main --bf16 --trace_dir` at full width on 4's
+     dataset: 4 PNGs of 512², finite frames, each forward kernel twice a
+     batch, a Chrome trace naming the sampler and marcher kernels and the
+     annotated regions (encoder, subspace, synthesis);
+ 28. `--bf16` card (kernels) against CPU (plain versions): one frame, each
+     beside the card's fp32 frame, and one bf16 RGB step's loss and
+     gradients at full width, batch 1, in the L2 norm;
+ 29. `--bf16` frames/s at batch 8 and RGB steps/s at batch 2 with peak
+     memory, beside 6's and 9's fp32 figures (printed, not asserted); one
+     RGB step under the renderer's `remat` against the plain step (the
+     sampler launched 4 times, peak memory of each); one reenactment batch
+     under `ray_chunk` 4096 against the port's CPU chunked render;
+ 30. `train_rgb.main --bf16 --person_2 --init --run_id_2` at full width on
+     PTI pivots (.npy and .pt), 2 steps: person 2's bases as
+     `load_pti_bases` gives them, unchanged while person 1's move, kept in
+     the checkpoint, which `run_recon_video_rgb.main --bf16 --model_path`
+     reads; then `train_3dmm.main` and `train_audio.main --bf16`, 2 steps
+     each, with 14's and 15's launches a step.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step (a bf16 one for the bf16
@@ -1141,6 +1159,11 @@ def phase_main_path(tmp: str) -> dict[str, int]:
     return launches
 
 
+def dtype_name(cfg) -> str:
+    """"bf16" for an avatar config under --bf16, else "fp32"."""
+    return "bf16" if cfg.eg3d.compute_dtype == torch.bfloat16 else "fp32"
+
+
 def reference_inputs(cfg, batch: int):
     from hfa_gp_tpu_torch.core import camera
     g = torch.Generator().manual_seed(SEED + 1)
@@ -1180,11 +1203,13 @@ def phase_card_vs_cpu() -> None:
         fail(f"card frame differs from the CPU frame by {err}")
 
 
-def phase_throughput() -> None:
+def phase_throughput(cfg=None, tag: str = "[6]") -> dict:
+    """[6] steady-state frames/s at batch 8 and peak device memory, for
+    `cfg` (default: the full-width fp32 config); → {"fps", "gib"}."""
     from hfa_gp_tpu_torch.cli.run_recon_video_rgb import reenact
     from hfa_gp_tpu_torch.models.avatar import heads
     batch, iters = 8, 5
-    cfg = heads.AvatarConfig()
+    cfg = cfg or heads.AvatarConfig()
     params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED), cfg,
                                    "cuda")
     image, label = reference_inputs(cfg, batch)
@@ -1195,9 +1220,10 @@ def phase_throughput() -> None:
                           iters=iters, warmup=2)
     peak = torch.cuda.max_memory_allocated()
     fps = batch / (ms / 1e3)
-    print(f"[6] batch {batch}: {ms:.2f} ms per batch (median of {iters}), "
-          f"{fps:.3f} frames/s, peak device memory {peak / 2**30:.3f} GiB",
-          flush=True)
+    print(f"{tag} batch {batch}, {dtype_name(cfg)}: {ms:.2f} ms per "
+          f"batch (median of {iters}), {fps:.3f} frames/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    return {"fps": fps, "gib": peak / 2**30}
 
 
 def phase_train_path(tmp: str) -> dict[str, int]:
@@ -1309,13 +1335,14 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     return launches
 
 
-def train_setup(dev: str, batch: int):
-    """Seeded full-width params, LPIPS params and a batch on `dev`."""
+def train_setup(dev: str, batch: int, cfg=None):
+    """Seeded params of `cfg` (default: the full-width fp32 config) in a
+    training state, LPIPS params and a batch on `dev`."""
     from hfa_gp_tpu_torch.models import lpips
     from hfa_gp_tpu_torch.models.avatar import heads
     from hfa_gp_tpu_torch.train.state import init_state
     from hfa_gp_tpu_torch.utils.convert import ParamTree
-    cfg = heads.AvatarConfig()
+    cfg = cfg or heads.AvatarConfig()
     params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED), cfg,
                                    dev)
     lp = ParamTree(lpips.init_lpips(torch.Generator().manual_seed(SEED + 2))) \
@@ -1361,12 +1388,13 @@ def phase_step_card_vs_cpu() -> None:
              f"{rels[worst[0]]} of its scale")
 
 
-def phase_train_throughput() -> None:
+def phase_train_throughput(cfg=None, tag: str = "[9]") -> dict:
     """[9] steady-state training steps/s at batch 2 (host clock around
-    synchronised steps) and peak device memory."""
+    synchronised steps) and peak device memory, for `cfg` (default: the
+    full-width fp32 config); → {"steps_per_s", "gib"}."""
     from hfa_gp_tpu_torch.train import rgb
     batch, iters, warmup = 2, 5, 2
-    cfg, state, lp, image, label = train_setup("cuda", batch)
+    cfg, state, lp, image, label = train_setup("cuda", batch, cfg)
     times = []
     for i in range(warmup + iters):
         if i == warmup:
@@ -1378,10 +1406,11 @@ def phase_train_throughput() -> None:
         times.append(time.perf_counter() - t0)
     ms = float(np.median(times[warmup:])) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    print(f"[9] training, batch {batch}, generator unfrozen: {ms:.2f} ms per "
-          f"step (median of {iters}), {1e3 / ms:.3f} steps/s, "
-          f"{batch * 1e3 / ms:.3f} frames/s, peak device memory "
-          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"{tag} training, batch {batch}, {dtype_name(cfg)}, "
+          f"generator unfrozen: {ms:.2f} ms per step (median of {iters}), "
+          f"{1e3 / ms:.3f} steps/s, {batch * 1e3 / ms:.3f} frames/s, peak "
+          f"device memory {peak / 2**30:.3f} GiB", flush=True)
+    return {"steps_per_s": 1e3 / ms, "gib": peak / 2**30}
 
 
 ARC_NET, ARC_BATCH, ARC_DIM = "iresnet50", 256, 512
@@ -2973,6 +3002,378 @@ def phase_eval_ijb(tmp: str) -> dict:
     return {"images_per_s": n_images / sec50, "seconds": sec50}
 
 
+# [27]-[30], the avatar CLIs' remaining single-card flags: --bf16 (the JAX
+# package's headline configuration: the EG3D synthesis chains and the OSG
+# decoder in bf16, the kernels' fp32 interfaces unchanged), --trace_dir,
+# the renderer's remat and ray_chunk, the second person's subspace.
+#   card vs CPU in bf16: both round every conv output to bf16, cuDNN and
+#   oneDNN after summing in their own orders. L2 norms relative to the
+#   reference's; each bound about 2.5x its first reading on an H100 80GB
+#   HBM3 at 700 W: the frame 3.7e-3 card vs CPU and 4.0e-3 from the card's
+#   fp32 frame; the step's loss 6.9e-5, gradients 1.3e-3 to 1.5e-3 by group
+#   and 1.0e-2 for the worst tensor (one of the 4x4 block's)
+BF16_FRAME_L2 = 1e-2
+BF16_VS_FP32_L2 = 1e-2
+BF16_LOSS_RTOL = 2e-4
+BF16_GROUP_L2 = 4e-3
+BF16_TENSOR_L2 = 2.5e-2
+#   remat recomputes the same forward; only the sampler backward's atomics
+#   reorder fp32 sums (2.1e-5 of a gradient's scale at the first reading)
+REMAT_GRAD_RTOL = 1e-4
+RAY_CHUNK = 4096
+
+
+def l2_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """‖got − want‖ / ‖want‖ in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def bf16_config(cfg=None):
+    from hfa_gp_tpu_torch.cli import common
+    from hfa_gp_tpu_torch.models.avatar import heads
+    return common.with_dtype(cfg or heads.AvatarConfig(), torch.bfloat16)
+
+
+def with_render(cfg, **kw):
+    """cfg with the renderer's fields in kw replaced."""
+    import dataclasses
+    return dataclasses.replace(cfg, eg3d=dataclasses.replace(
+        cfg.eg3d, render=dataclasses.replace(cfg.eg3d.render, **kw)))
+
+
+def phase_bf16_main_path(tmp: str) -> dict[str, int]:
+    """[27] run_recon_video_rgb.main --bf16 --trace_dir at full width on
+    [4]'s 4-frame dataset: 4 PNGs of 512², finite frames, each forward
+    kernel twice a batch, and a Chrome trace whose events name the
+    sampler and marcher kernels and the annotated regions."""
+    from hfa_gp_tpu_torch.cli import run_recon_video_rgb as cli
+    n_frames, batch = 4, 4
+    write_dataset(tmp, n_frames)
+    trace_dir = os.path.join(tmp, "trace")
+    args = cli.build_argparser().parse_args([
+        "--dataset_root", tmp, "--person", "person_3", "--size", "256",
+        "--render_batch", str(batch), "--demo_dir",
+        os.path.join(tmp, "demo"), "--demo_name", "bf16", "--fps", "4",
+        "--device", "cuda", "--bf16", "--trace_dir", trace_dir])
+    finite = []
+    reenact = cli.reenact
+
+    def checked(*a, **kw):
+        out = reenact(*a, **kw)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+
+    cli.reenact = checked
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        cli.main(args)
+    finally:
+        cli.reenact = reenact
+    launches = read_launches()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    traces = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    names: set[str] = set()
+    for path in traces:
+        with open(path) as f:
+            names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    seen = {k: sum(k in n for n in names) > 0
+            for k in ("triplane_sampler_kernel", "ray_march", "encoder",
+                      "subspace", "synthesis")}
+    n_batches = -(-n_frames // batch)
+    print(f"[27] --bf16 --trace_dir reenactment: finite {finite}, launches "
+          f"{launches} over {n_batches} batch(es), {seconds:.2f} s (tracing "
+          f"and first-use costs included); {len(traces)} trace file(s), "
+          f"{sum(os.path.getsize(t) for t in traces) / 2**20:.2f} MiB, "
+          f"{len(names)} event names, named: {seen}", flush=True)
+    check_pngs("--bf16 frames", os.path.join(tmp, "demo", "bf16", "*.png"),
+               n_frames)
+    if len(finite) != n_batches or not all(finite):
+        fail(f"[27] non-finite frames: {finite}")
+    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
+                "ray_marcher": 2 * n_batches}
+    if launches != expected:
+        fail(f"[27] launched {launches}, expected {expected}")
+    if len(traces) != 1 or not all(seen.values()):
+        fail(f"[27] trace files {traces}, named {seen}")
+    return launches
+
+
+def phase_bf16_card_vs_cpu() -> dict:
+    """[28] --bf16 on the card (kernels) against the CPU (plain versions),
+    from the same seeded params: one frame, each beside the card's fp32
+    frame; then one bf16 RGB training step's loss and gradients at full
+    width, batch 1, in the L2 norm (LeakyReLU's kink and bf16 rounding move
+    single entries): each group of parameters together and each tensor."""
+    from hfa_gp_tpu_torch.cli.run_recon_video_rgb import reenact
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import rgb
+    cfg32, cfg16 = heads.AvatarConfig(), bf16_config()
+    image, label = reference_inputs(cfg32, 1)
+    frames, secs = {}, {}
+    for name, dev, cfg in (("card16", "cuda", cfg16), ("card32", "cuda", cfg32),
+                           ("cpu16", "cpu", cfg16)):
+        params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED),
+                                       cfg, dev)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            frames[name] = reenact(params, cfg, image.to(dev),
+                                   label.to(dev)).cpu()
+        secs[name] = time.perf_counter() - t0
+        del params
+    frame = {"card vs CPU": l2_rel(frames["card16"], frames["cpu16"]),
+             "card bf16 vs card fp32": l2_rel(frames["card16"],
+                                              frames["card32"]),
+             "CPU bf16 vs card fp32": l2_rel(frames["cpu16"],
+                                             frames["card32"])}
+    print(f"[28] one --bf16 frame at full width, L2 over the reference's "
+          f"norm: { {k: float(f'{v:.3e}') for k, v in frame.items()} } "
+          f"(bounds {BF16_FRAME_L2:g} card vs CPU, {BF16_VS_FP32_L2:g} to "
+          f"fp32); max abs card vs CPU "
+          f"{(frames['card16'] - frames['cpu16']).abs().max().item():.3e}; "
+          f"card {secs['card16']:.2f} s, CPU {secs['cpu16']:.2f} s",
+          flush=True)
+    if frames["card16"].dtype != torch.float32 \
+            or frames["card16"].shape != (1, 512, 512, 3) \
+            or not torch.isfinite(frames["card16"]).all():
+        fail(f"[28] card bf16 frame {frames['card16'].dtype} "
+             f"{tuple(frames['card16'].shape)}")
+    if not frame["card vs CPU"] <= BF16_FRAME_L2:
+        fail(f"[28] bf16 frame card vs CPU {frame['card vs CPU']}")
+    for k in ("card bf16 vs card fp32", "CPU bf16 vs card fp32"):
+        if not 1e-4 < frame[k] <= BF16_VS_FP32_L2:
+            fail(f"[28] {k}: {frame[k]} (bf16 did not run, or too far)")
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg, state, lp, img, lab = train_setup(dev, 1, cfg16)
+        t0 = time.perf_counter()
+        loss, aux = rgb.loss_fn(state.params, lp, cfg, img, lab)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in state.params.named_parameters()
+                 if p.grad is not None}
+        out[dev] = (loss.item(), grads, time.perf_counter() - t0,
+                    aux["generated"].dtype)
+        del state, lp, loss, aux
+    (l_gpu, g_gpu, t_gpu, dt_gpu), (l_cpu, g_cpu, t_cpu, _) = \
+        out["cuda"], out["cpu"]
+    if sorted(g_gpu) != sorted(g_cpu):
+        fail("[28] card and CPU give gradients to different parameters")
+    if not all(torch.isfinite(g).all() for g in g_gpu.values()):
+        fail("[28] non-finite gradient on the card")
+    tensors = {n: l2_rel(g_gpu[n], g_cpu[n]) for n in g_cpu
+               if g_cpu[n].abs().max() > 0}
+    groups = {}
+    for top in ("encoder", "subspace", "generator"):
+        names = [n for n in tensors if n.startswith(top + ".")]
+        groups[top] = l2_rel(torch.cat([g_gpu[n].flatten() for n in names]),
+                             torch.cat([g_cpu[n].flatten() for n in names]))
+    worst = sorted(tensors, key=tensors.get)[-3:][::-1]
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"[28] one --bf16 training step at full width, batch 1, card vs "
+          f"CPU: loss {l_gpu:.6f} vs {l_cpu:.6f} (rel {loss_rel:.3e}, bound "
+          f"{BF16_LOSS_RTOL:g}); image {dt_gpu}; gradients by group in the L2 "
+          f"norm { {k: float(f'{v:.3e}') for k, v in groups.items()} } (bound "
+          f"{BF16_GROUP_L2:g}); {len(tensors)} tensors, median "
+          f"{float(np.median(list(tensors.values()))):.3e}, worst "
+          f"{[(n, float(f'{tensors[n]:.3e}')) for n in worst]} (bound "
+          f"{BF16_TENSOR_L2:g}); card {t_gpu:.2f} s, CPU {t_cpu:.2f} s",
+          flush=True)
+    if dt_gpu != torch.float32:
+        fail(f"[28] the bf16 step's image is {dt_gpu}, not fp32")
+    if not loss_rel <= BF16_LOSS_RTOL:
+        fail(f"[28] bf16 loss card {l_gpu} vs CPU {l_cpu}")
+    if not max(groups.values()) <= BF16_GROUP_L2 \
+            or not tensors[worst[0]] <= BF16_TENSOR_L2:
+        fail(f"[28] bf16 gradients card vs CPU: {groups}, worst "
+             f"{worst[0]} {tensors[worst[0]]}")
+    return {"frame": frame, "loss_rel": loss_rel, "groups": groups,
+            "worst_tensor": tensors[worst[0]]}
+
+
+def phase_remat_ray_chunk(fp32_step: dict) -> dict:
+    """[29] one RGB step under remat at batch 2 against the plain step
+    (fp32, same seeded state and batch): the same loss, gradients within
+    the sampler backward's atomics, the sampler four times, and the peak
+    memory of each; then one reenactment batch of 2 under ray_chunk 4096
+    on the card against the port's CPU chunked render, 4 chunks a pass."""
+    from hfa_gp_tpu_torch.cli.run_recon_video_rgb import reenact
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import rgb
+    out = {}
+    for remat in (False, True):
+        cfg = with_render(heads.AvatarConfig(), remat=remat)
+        cfg, state, lp, image, label = train_setup("cuda", 2, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        loss, _ = rgb.loss_fn(state.params, lp, cfg, image, label)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.item(), {n: p.grad.clone() for n, p in
+                                    state.params.named_parameters()
+                                    if p.grad is not None},
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      read_launches())
+        del state, lp, loss
+    (l0, g0, gib0, _), (l1, g1, gib1, launches) = out[False], out[True]
+    rels = {n: rel_err(g1[n], g0[n])[1] for n in g0 if g0[n].abs().max() > 0}
+    worst = max(rels, key=rels.get)
+    print(f"[29] one RGB step under remat, batch 2, fp32: loss {l1:.6f} vs "
+          f"{l0:.6f} plain; {len(rels)} gradients, worst {worst} "
+          f"{rels[worst]:.3e} of its scale (bound {REMAT_GRAD_RTOL:g}); "
+          f"launches {launches}; peak device memory {gib1:.3f} GiB remat, "
+          f"{gib0:.3f} GiB plain (loss and backward only; [9]'s step "
+          f"{fp32_step['gib']:.3f})", flush=True)
+    if sorted(g1) != sorted(g0) or not abs(l1 - l0) <= 1e-6 * abs(l0) \
+            or not rels[worst] <= REMAT_GRAD_RTOL:
+        fail(f"[29] remat step: loss {l1} vs {l0}, worst gradient {worst} "
+             f"{rels[worst]}")
+    remat_expected = {**NO_LAUNCHES, "triplane_sampler": 4,
+                      "triplane_sampler_bwd": 2, "ray_marcher": 2,
+                      "ray_marcher_bwd": 1}
+    if launches != remat_expected:
+        fail(f"[29] remat step launched {launches}, expected "
+             f"{remat_expected}")
+
+    cfg = with_render(heads.AvatarConfig(), ray_chunk=RAY_CHUNK)
+    image, label = reference_inputs(cfg, 2)
+    frames, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED),
+                                       cfg, dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            frames[dev] = reenact(params, cfg, image.to(dev),
+                                  label.to(dev)).cpu()
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            chunk_launches = read_launches()
+            with torch.inference_mode():
+                whole = reenact(params, heads.AvatarConfig(), image.cuda(),
+                                label.cuda()).cpu()
+        del params
+    n_chunks = cfg.eg3d.render.neural_rendering_resolution ** 2 // RAY_CHUNK
+    scale = max(1.0, frames["cpu"].abs().max().item())
+    err = (frames["cuda"] - frames["cpu"]).abs().max().item()
+    err_whole = (frames["cuda"] - whole).abs().max().item()
+    print(f"[29] reenactment batch of 2 under ray_chunk {RAY_CHUNK} "
+          f"({n_chunks} chunks a pass): card vs CPU max abs diff {err:.3e} "
+          f"(bound {E2E_RTOL:g} x max(1, scale {scale:.3e})), against the "
+          f"card's unchunked batch {err_whole:.3e}; launches "
+          f"{chunk_launches}; card {secs['cuda']:.2f} s, CPU "
+          f"{secs['cpu']:.2f} s", flush=True)
+    if not torch.isfinite(frames["cuda"]).all() or not err <= E2E_RTOL * scale:
+        fail(f"[29] ray_chunk batch card vs CPU: {err}")
+    chunk_expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_chunks,
+                      "ray_marcher": 2 * n_chunks}
+    if chunk_launches != chunk_expected:
+        fail(f"[29] ray_chunk batch launched {chunk_launches}, expected "
+             f"{chunk_expected}")
+    return {"remat_launches": launches, "chunk_launches": chunk_launches,
+            "remat_gib": gib1, "plain_gib": gib0}
+
+
+def write_pivots(emb_dir: str, n_ws: int = 18, dim: int = 512) -> None:
+    """Two PTI pivots of seeded W+ rows: a/0.npy (n_ws, dim) and a
+    PyTorch-saved b/0.pt (1, n_ws, dim)."""
+    rng = np.random.default_rng(SEED + 6)
+    for name in ("a", "b"):
+        os.makedirs(os.path.join(emb_dir, name))
+    np.save(os.path.join(emb_dir, "a", "0.npy"),
+            rng.standard_normal((n_ws, dim)).astype(np.float32))
+    torch.save(torch.from_numpy(rng.standard_normal((1, n_ws, dim))
+                                .astype(np.float32)),
+               os.path.join(emb_dir, "b", "0.pt"))
+
+
+def phase_person_2_bf16(tmp: str) -> None:
+    """[30] train_rgb.main --bf16 --person_2 --init --run_id_2 at full
+    width, batch 2, 2 steps on PTI pivots (.npy and .pt): person 2's bases
+    start as load_pti_bases gives them and stay so while person 1's move,
+    the checkpoint holds them, and run_recon_video_rgb --bf16 --model_path
+    reads it; then train_3dmm.main and train_audio.main --bf16, 2 steps
+    each, with [14]/[15]'s launches a step."""
+    from hfa_gp_tpu_torch.cli import (run_recon_video_rgb, train_3dmm,
+                                      train_audio, train_rgb)
+    from hfa_gp_tpu_torch.models.avatar import heads, subspace
+    from hfa_gp_tpu_torch.train import checkpoint as ckpt
+    steps, batch = 2, 2
+    write_dataset(tmp, 6, split="train")
+    write_dataset(tmp, 4, split="test2")
+    emb = os.path.join(tmp, "emb")
+    write_pivots(os.path.join(emb, "r", "PTI"))
+    exp = os.path.join(tmp, "exps")
+    common_flags = ["--dataset_root", tmp, "--person", "person_3", "--size",
+                    "256", "--batch_size", str(batch), "--exp_path", exp,
+                    "--tune_iter", "0", "--device", "cuda", "--iter",
+                    str(steps), "--display_freq", "100", "--save_freq",
+                    str(steps), "--bf16"]
+    per_step = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+                "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
+                "ray_marcher_bwd": steps}
+    reset_launches()
+    t0 = time.perf_counter()
+    train_rgb.main(train_rgb.build_argparser().parse_args(
+        common_flags + ["--exp_name", "p2", "--person_2", "p", "--init",
+                        "--run_id_2", "r", "--emb_dir", emb]))
+    launches = read_launches()
+    seconds = time.perf_counter() - t0
+    shown = train_losses("--person_2 --bf16 training",
+                         os.path.join(exp, "p2"), steps)
+    path = os.path.join(exp, "p2", "checkpoint", f"{steps - 1:06d}")
+    got = ckpt.load_params(path)
+    cfg = heads.AvatarConfig()
+    want = subspace.load_pti_bases(os.path.join(emb, "r", "PTI"),
+                                   cfg.dim_shape, cfg.eg3d.num_ws, cfg.dim)
+    init = heads.init_avatar_rgb(torch.Generator().manual_seed(
+        train_rgb.SEED), cfg)
+    moved_2 = (got["subspace_2"]["bases"] - want).abs().max().item()
+    moved_1 = (got["subspace"]["bases"]
+               - init["subspace"]["bases"]).abs().max().item()
+    print(f"[30] train_rgb --bf16 --person_2 --init --run_id_2: {steps} steps "
+          f"at batch {batch} in {seconds:.2f} s, (l2, lpips) {shown}, "
+          f"launches {launches}; subspace_2 in the checkpoint "
+          f"{'subspace_2' in got}, its bases' max abs change from "
+          f"load_pti_bases {moved_2:.3e}, subspace's {moved_1:.3e}",
+          flush=True)
+    if launches != per_step:
+        fail(f"[30] train_rgb launched {launches}, expected {per_step}")
+    if "subspace_2" not in got or moved_2 != 0.0 or not moved_1 > 0.0:
+        fail(f"[30] subspace_2: changed {moved_2}, subspace {moved_1}")
+    demo = os.path.join(tmp, "demo_p2")
+    run_recon_video_rgb.main(run_recon_video_rgb.build_argparser().parse_args(
+        ["--dataset_root", tmp, "--person", "person_3", "--size", "256",
+         "--render_batch", "4", "--demo_dir", demo, "--demo_name", "p2",
+         "--fps", "4", "--device", "cuda", "--bf16", "--model_path", path]))
+    check_pngs("--bf16 reenactment from the person_2 checkpoint",
+               os.path.join(demo, "p2", "*.png"), 4)
+
+    write_expressions(tmp, 6, "train")
+    write_expressions(tmp, 4, "test")
+    write_audio_dataset(tmp)
+    for name, cli, extra in (
+            ("3DMM", train_3dmm, ["--exp_name", "b3dmm"]),
+            ("audio", train_audio, ["--exp_name", "baudio", "--dataset",
+                                    "ad_dataset", "--person", "obama",
+                                    "--nosmo_iters", "1"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(cli.build_argparser().parse_args(common_flags + extra))
+        launches = read_launches()
+        shown = train_losses(f"{name} --bf16 training",
+                             os.path.join(exp, extra[1]), steps)
+        print(f"[30] train_{name.lower()} --bf16: {steps} steps in "
+              f"{time.perf_counter() - t0:.2f} s, (l2, lpips) {shown}, "
+              f"launches {launches}", flush=True)
+        if launches != per_step:
+            fail(f"[30] {name} --bf16 launched {launches}, expected "
+                 f"{per_step}")
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -2991,11 +3392,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         reenact_launches = phase_main_path(tmp)
     phase_card_vs_cpu()
-    phase_throughput()
+    fp32_reenact = phase_throughput()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches = phase_train_path(tmp)
     phase_step_card_vs_cpu()
-    phase_train_throughput()
+    fp32_step = phase_train_throughput()
     with tempfile.TemporaryDirectory() as tmp:
         arcface_launches = phase_arcface_path(tmp)
     phase_arcface_card_vs_cpu()
@@ -3019,6 +3420,23 @@ def main() -> None:
         phase_val_bin_export(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_eval_ijb(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_launches = phase_bf16_main_path(tmp)
+    phase_bf16_card_vs_cpu()
+    bf16_reenact = phase_throughput(bf16_config(), "[29]")
+    bf16_step = phase_train_throughput(bf16_config(), "[29]")
+    print(f"[29] bf16 over fp32 ([6], [9]): reenactment "
+          f"{bf16_reenact['fps']:.3f} / {fp32_reenact['fps']:.3f} frames/s = "
+          f"{bf16_reenact['fps'] / fp32_reenact['fps']:.3f}x, peak "
+          f"{bf16_reenact['gib']:.3f} / {fp32_reenact['gib']:.3f} GiB; RGB "
+          f"step {bf16_step['steps_per_s']:.3f} / "
+          f"{fp32_step['steps_per_s']:.3f} steps/s = "
+          f"{bf16_step['steps_per_s'] / fp32_step['steps_per_s']:.3f}x, "
+          f"peak {bf16_step['gib']:.3f} / {fp32_step['gib']:.3f} GiB",
+          flush=True)
+    flags = phase_remat_ray_chunk(fp32_step)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_person_2_bf16(tmp)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
@@ -3037,6 +3455,10 @@ def main() -> None:
             k["launches_reenact"] = reenact_launches[k["name"]]
             k["launches_3dmm"] = t3dmm_launches[k["name"]]
             k["launches_audio"] = audio_launches[k["name"]]
+            k["launches_bf16_reenact"] = bf16_launches[k["name"]]
+            k["launches_remat_step"] = flags["remat_launches"][k["name"]]
+            k["launches_ray_chunk_reenact"] = \
+                flags["chunk_launches"][k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
     # what each kernel loses on a unit of each path: launches x (ms - bound)

@@ -4,14 +4,15 @@ construction, weight loading, experiment directories and video assembly.
 
 Every flag of the JAX CLI is accepted, so reference command lines port
 over unchanged. `--addr` and `--port` are ignored, as in the JAX CLI. Where
-another flag asks for something this port does not do (the second
-person's subspace, several processes, TPU machinery), `avatar_config`
-raises; none is ignored silently.
+another flag asks for something this port does not do (several processes
+or devices, TPU machinery, `--trace_dir` outside `run_recon_video_rgb`),
+`avatar_config` raises; none is ignored silently.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob
 import json
 import os
@@ -22,7 +23,7 @@ import torch
 
 from ..models import lpips as lpips_mod
 from ..models.avatar.heads import AvatarConfig
-from ..models.eg3d.generator import EG3DConfig
+from ..models.avatar.subspace import load_pti_bases
 from ..utils import convert
 
 LPIPS_SEED = 777
@@ -53,15 +54,15 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--out_pose", action="store_true", default=False)
     p.add_argument("--use_softmax", action="store_true", default=False)
     p.add_argument("--person_2", type=str, default=None,
-                   help="second-person subspace (not ported: raises)")
+                   help="second-person subspace (RGB models)")
     p.add_argument("--run_id", type=str, default="nerface2")
     p.add_argument("--run_id_2", type=str, default=None)
     p.add_argument("--emb_dir", type=str, default="./PTI/embeddings/")
     p.add_argument("--init", action="store_true", default=False,
-                   help="person-2 bases from PTI pivots (not ported: "
-                        "raises with --run_id_2)")
+                   help="person-2 bases from the PTI pivots in "
+                        "{emb_dir}/{run_id_2}/PTI (train_rgb)")
     p.add_argument("--same_bases", action="store_true", default=False,
-                   help="person 2 shares the bases (not ported: raises)")
+                   help="person 2 shares the bases, with a delta of its own")
     # the reference's DDP rendezvous: accepted and ignored, as in JAX
     p.add_argument("--addr", type=str, default="localhost")
     p.add_argument("--port", type=str, default="12345")
@@ -70,7 +71,8 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device; CUDA runs the hand-written kernels")
     # accepted for parity with the JAX CLI; see avatar_config
     p.add_argument("--bf16", action="store_true", default=False,
-                   help="not ported: raises")
+                   help="bfloat16 synthesis chains and OSG decoder (fp32 "
+                        "master weights, kernels, image and loss)")
     p.add_argument("--n_model", type=int, default=1,
                    help="ray sharding; only 1 is supported")
     p.add_argument("--pallas_marcher", action="store_true", default=False,
@@ -81,7 +83,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    action="store_false",
                    help="not supported: raises")
     p.add_argument("--trace_dir", type=str, default=None,
-                   help="profiler trace (not ported: raises)")
+                   help="torch.profiler trace of the render loop into this "
+                        "dir (run_recon_video_rgb only, as in JAX; the "
+                        "other CLIs raise)")
 
 
 def add_distributed_flags(p: argparse.ArgumentParser) -> None:
@@ -96,33 +100,44 @@ def add_distributed_flags(p: argparse.ArgumentParser) -> None:
                    help="this process's rank")
 
 
-def avatar_config(args) -> AvatarConfig:
-    """AvatarConfig for the flags; raises on a flag the port cannot honour.
-    The avatar CLIs call it before anything else."""
+def avatar_config(args, tracing: bool = False) -> AvatarConfig:
+    """AvatarConfig for the flags; raises on a flag the port cannot honour,
+    and on `--trace_dir` unless the CLI traces (`tracing`). The avatar CLIs
+    call it before anything else. `--bf16` runs the synthesis chains and
+    the decoder in bf16, as the JAX CLI does."""
     single_process(args)
-    if args.bf16:
-        raise NotImplementedError("--bf16: the port runs fp32 only")
     if args.n_model != 1:
         raise NotImplementedError("--n_model > 1: the port runs on one device")
     if args.pallas_sampler is False:
         raise NotImplementedError("--no_pallas_sampler: on CUDA the port "
                                   "always runs its tri-plane sampler kernel")
-    if args.trace_dir is not None:
-        raise NotImplementedError("--trace_dir: profiler tracing is not "
-                                  "ported")
-    if args.person_2 is not None:
-        raise NotImplementedError("--person_2: the second-person subspace "
-                                  "is not ported")
-    if args.same_bases:
-        raise NotImplementedError("--same_bases: the second-person subspace "
-                                  "is not ported")
-    if args.init and args.run_id_2 is not None:
-        raise NotImplementedError("--init with --run_id_2: the second "
-                                  "person's PTI bases are not ported")
-    return AvatarConfig(size=args.size, dim=args.latent_dim_style,
-                        dim_shape=args.latent_dim_shape,
-                        use_softmax=args.use_softmax, out_pose=args.out_pose,
-                        eg3d=EG3DConfig())
+    if args.trace_dir is not None and not tracing:
+        raise NotImplementedError("--trace_dir: only run_recon_video_rgb "
+                                  "traces, as in the JAX package")
+    cfg = AvatarConfig(size=args.size, dim=args.latent_dim_style,
+                       dim_shape=args.latent_dim_shape,
+                       use_softmax=args.use_softmax, out_pose=args.out_pose,
+                       person_2=args.person_2 is not None,
+                       same_bases=args.same_bases)
+    return with_dtype(cfg, torch.bfloat16) if args.bf16 else cfg
+
+
+def with_dtype(cfg: AvatarConfig, dtype: torch.dtype) -> AvatarConfig:
+    """cfg with the EG3D synthesis chains and the OSG decoder in `dtype`
+    (`--bf16`: torch.bfloat16, the JAX CLI's compute and decoder dtype)."""
+    eg3d = cfg.eg3d
+    return dataclasses.replace(cfg, eg3d=dataclasses.replace(
+        eg3d, compute_dtype=dtype,
+        render=dataclasses.replace(eg3d.render, decoder_dtype=dtype)))
+
+
+def load_init_bases_2(args, cfg: AvatarConfig) -> torch.Tensor | None:
+    """With `--init` and `--run_id_2`: person 2's bases from the PTI pivots
+    in {emb_dir}/{run_id_2}/PTI (`subspace.load_pti_bases`); else None."""
+    if not (args.init and args.run_id_2):
+        return None
+    return load_pti_bases(os.path.join(args.emb_dir, args.run_id_2, "PTI"),
+                          cfg.dim_shape, cfg.eg3d.num_ws, cfg.dim)
 
 
 def single_process(args) -> None:

@@ -9,14 +9,18 @@ Reads the test frames and labels, renders each batch of `--render_batch`
 frames (encoder → QR subspace → EG3D synthesis → SR), writes
 `{demo_dir}/{demo_name}/%05d.png` and assembles a video. `--model_path`
 takes a checkpoint file written by the port's trainer
-(`cli/train_rgb.py`); `--model_npz` takes the JAX package's flat-npz
-params (utils/pytree_io.py format), converted by utils/convert.py.
-Without either the params are a seeded random init.
+(`cli/train_rgb.py`, with or without a second person's subspace);
+`--model_npz` takes the JAX package's flat-npz params (utils/pytree_io.py
+format), converted by utils/convert.py. Without either the params are a
+seeded random init. `--trace_dir` writes a `torch.profiler` trace of the
+render loop there, with the regions "encoder", "subspace" and "synthesis"
+of each batch named.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
@@ -24,7 +28,7 @@ import torch
 from ..data.dataset import HeadDataTest
 from ..models.avatar import heads
 from ..train import checkpoint as ckpt
-from ..utils import convert
+from ..utils import convert, observability
 from ..utils.logging import save_image
 from . import common
 
@@ -64,15 +68,18 @@ def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
 def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
             label: torch.Tensor) -> torch.Tensor:
     """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3)."""
-    weights = heads.rgb_get_weights(params, cfg, image)
+    with observability.annotate("encoder"):
+        weights = heads.rgb_get_weights(params, cfg, image)
     if cfg.out_pose:
         weights, _pose = weights
-    latent = heads.get_latent(params, weights, cfg)
-    return heads.get_image(params, cfg, latent, label)
+    with observability.annotate("subspace"):
+        latent = heads.get_latent(params, weights, cfg)
+    with observability.annotate("synthesis"):
+        return heads.get_image(params, cfg, latent, label)
 
 
 def main(args) -> None:
-    cfg = common.avatar_config(args)
+    cfg = common.avatar_config(args, tracing=True)
     device = common.device_from_args(args)
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
@@ -84,7 +91,9 @@ def main(args) -> None:
 
     n, bs = len(dataset), max(args.render_batch, 1)
     frame_idx = 0
-    with torch.inference_mode():
+    tracer = observability.trace(args.trace_dir) if args.trace_dir \
+        else contextlib.nullcontext()
+    with tracer, torch.inference_mode():
         for start in range(0, n, bs):
             items = [dataset[i] for i in range(start, min(start + bs, n))]
             imgs = torch.stack([it[0] for it in items]).to(device)

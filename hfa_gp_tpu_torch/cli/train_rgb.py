@@ -10,7 +10,10 @@ generator) to a subject's training frames with L2 + LPIPS, in one process
 on one device. Writes under `{exp_path}/{exp_name}/`: `log/metrics.jsonl`
 and `log/args.json`, `display/{i}source.png` and `{i}recon.png`,
 `bases/{b}person_1.png`, and `checkpoint/{i:06d}`. `--resume_ckpt` takes
-one of those checkpoint files and continues from its step.
+one of those checkpoint files and continues from its step. `--person_2`
+adds a second person's subspace (from PTI pivots with `--init --run_id_2`),
+which the RGB loss does not reach, so it is saved as it was initialised,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ def main(args) -> None:
     print("==> initializing trainer")
     params = heads.init_avatar_rgb(
         torch.Generator().manual_seed(SEED), cfg, device,
-        generator_params=common.load_generator_weights(args))
+        generator_params=common.load_generator_weights(args),
+        init_bases_2=common.load_init_bases_2(args, cfg))
     lpips_params = common.load_lpips(args, device)
     state = init_state(params, args.lr)
 

@@ -4,6 +4,10 @@ Layouts: image tensors are NCHW and conv weights OIHW (the JAX package is
 NHWC / HWIO; utils/convert.py transposes its weights). FC weights are
 (out, in) in both packages. Plain PyTorch throughout: convolutions go to
 cuDNN, matrix products to cuBLAS.
+
+Dtypes, as in the JAX package: each op runs in the dtype of its input `x`
+(fp32, or bf16 under `--bf16`), and casts the fp32 master weights, biases
+and styles to it; no `torch.autocast`.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
                      scale: float = math.sqrt(2.0)) -> torch.Tensor:
     """leaky_relu(x + b) * scale, bias on the channel axis (dim 1)."""
     if bias is not None:
-        x = x + _channel_view(bias, x.ndim, 1)
+        x = x + _channel_view(bias.to(x.dtype), x.ndim, 1)
     return F.leaky_relu(x, negative_slope) * scale
 
 
@@ -40,7 +44,7 @@ def bias_act(x: torch.Tensor, bias: torch.Tensor | None = None, *,
     act ∈ {linear, relu, lrelu, sigmoid, tanh, softplus}; lrelu's default
     gain is sqrt(2), every other activation's is 1."""
     if bias is not None:
-        x = x + _channel_view(bias, x.ndim, dim)
+        x = x + _channel_view(bias.to(x.dtype), x.ndim, dim)
     if act == "linear":
         pass
     elif act == "relu":
@@ -146,9 +150,10 @@ def fully_connected(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor | None = None, *,
                     activation: str = "linear",
                     lr_multiplier: float = 1.0) -> torch.Tensor:
-    """EG3D FullyConnectedLayer on the last axis; weight (out, in)."""
+    """EG3D FullyConnectedLayer on the last axis; weight (out, in), cast to
+    the dtype of x."""
     gain = lr_multiplier / math.sqrt(weight.shape[1])
-    y = x @ (weight * gain).T
+    y = x @ (weight.to(x.dtype) * gain).T
     b = None if bias is None else bias * lr_multiplier
     return bias_act(y, b, act=activation, dim=-1)
 
@@ -165,8 +170,15 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     """StyleGAN2 modulated conv in the grouped-conv form.
 
     x (B, Cin, H, W); weight (Cout, Cin, kh, kw); styles (B, Cin). Each
-    sample gets its own weight w·s (·d when demodulating, with d computed
-    in fp32), and one grouped conv (groups = B) runs the batch.
+    sample gets its own weight w·s (·d when demodulating), and one grouped
+    conv (groups = B) runs the batch in the dtype of x.
+
+    The per-sample weight is folded in fp32 (d summed in fp32, as the JAX
+    package's comment asks; in float64 for a float64 x) and cast to x's
+    dtype once. In bf16 that rounds in other places than the JAX
+    package's order, which scales x by s, runs one conv with the shared
+    weight and scales y by d, each in bf16: the weight is rounded once
+    here, where JAX rounds x·s and y·d.
 
     up=2 is the JAX package's `lhs_dilation` correlation with padding
     kh−1, which equals `conv_transpose2d(stride=2)` with the kernel
@@ -174,11 +186,13 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
     (2H + kh − 2) result down to exactly 2H."""
     b, cin, h, w = x.shape
     cout, _, kh, kw = weight.shape
-    wb = weight[None] * styles[:, None, :, None, None]   # (B, O, I, kh, kw)
+    acc = torch.promote_types(x.dtype, torch.float32)   # fp32 at least
+    wb = weight.to(acc)[None] \
+        * styles.to(acc)[:, None, :, None, None]        # (B, O, I, kh, kw)
     if demodulate:
-        d = torch.rsqrt(wb.float().square().sum(dim=(2, 3, 4), keepdim=True)
-                        + eps)
-        wb = wb * d.to(wb.dtype)
+        wb = wb * torch.rsqrt(wb.square().sum(dim=(2, 3, 4), keepdim=True)
+                              + eps)
+    wb = wb.to(x.dtype)
     xg = x.reshape(1, b * cin, h, w)
     if up == 1:
         y = F.conv2d(xg, wb.reshape(b * cout, cin, kh, kw), padding=padding,

@@ -1,5 +1,4 @@
-"""Avatar heads in PyTorch (port of hfa_gp_tpu/models/avatar/heads.py,
-one person's subspace):
+"""Avatar heads in PyTorch (port of hfa_gp_tpu/models/avatar/heads.py):
   * RGB-driven:   image → encoder → α → QR subspace → EG3D → 512² image;
   * 3DMM-driven:  expression coefficients → MLP → α → subspace → EG3D;
   * audio-driven: audio code (AudioNet [+ AudioAttNet], which live in the
@@ -11,6 +10,8 @@ OpenGL and are flipped once (`label_convention="opengl"`).
 Params: one `ParamTree` with the JAX keys
     {"encoder" | "weights_mlp": ..., "subspace": {bases, delta},
      "generator": <EG3D>}
+and, for an RGB model with `person_2`, "subspace_2": {bases, delta} (no
+bases under `same_bases`: person 2 shares person 1's).
 """
 
 from __future__ import annotations
@@ -38,16 +39,21 @@ class AvatarConfig:
     dim_aud: int = 64               # audio code width
     win_size: int = 16              # DeepSpeech frames a window
     smo_size: int = 8               # windows a smoothing window
+    person_2: bool = False          # a second person's subspace (RGB)
+    same_bases: bool = False        # person 2 shares the bases, own delta
     eg3d: EG3DConfig = field(default_factory=EG3DConfig)
 
 
 def init_avatar_rgb(g: torch.Generator, cfg: AvatarConfig,
                     device: torch.device | str = "cpu",
-                    generator_params: dict | None = None) -> ParamTree:
+                    generator_params: dict | None = None,
+                    init_bases_2=None) -> ParamTree:
     """Random avatar params from `g`, on `device`. Draw from a CPU
     generator: the same seed then gives the same params on every device.
     `generator_params` (a nested dict of tensors in the port's layout)
-    takes the place of the random EG3D generator."""
+    takes the place of the random EG3D generator. With `cfg.person_2`,
+    "subspace_2" is drawn last (the other params do not change) or taken
+    from `init_bases_2` (`subspace.load_pti_bases`)."""
     tree = {
         "encoder": enc.init_encoder(g, cfg.size, cfg.dim, cfg.dim_shape,
                                     cfg.out_pose),
@@ -56,6 +62,12 @@ def init_avatar_rgb(g: torch.Generator, cfg: AvatarConfig,
         "generator": generator_params if generator_params is not None
         else eg3d_gen.init_generator(g, cfg.eg3d),
     }
+    if cfg.person_2:
+        sub2 = sub.init_subspace(g, cfg.dim_shape, cfg.eg3d.num_ws, cfg.dim,
+                                 init_bases_2)
+        if cfg.same_bases:
+            del sub2["bases"]
+        tree["subspace_2"] = sub2
     return ParamTree(tree).to(device)
 
 
@@ -94,9 +106,16 @@ def init_avatar_audio(g: torch.Generator, cfg: AvatarConfig,
     return _init_mlp_avatar(g, cfg.dim_aud, cfg, device, generator_params)
 
 
-def get_latent(params, weights: torch.Tensor,
-               cfg: AvatarConfig) -> torch.Tensor:
-    return sub.get_latent(params["subspace"], weights, cfg.dim)
+def get_latent(params, weights: torch.Tensor, cfg: AvatarConfig,
+               person_2: bool = False) -> torch.Tensor:
+    """person_2 selects the second subspace: its delta, and its bases
+    unless it has none (same_bases)."""
+    if not person_2:
+        return sub.get_latent(params["subspace"], weights, cfg.dim)
+    sp2 = params["subspace_2"]
+    return sub.get_latent({"bases": sp2.get("bases",
+                                            params["subspace"]["bases"]),
+                           "delta": sp2["delta"]}, weights, cfg.dim)
 
 
 def _normalize_label(label: torch.Tensor,
@@ -123,15 +142,17 @@ def rgb_get_weights(params, cfg: AvatarConfig, image: torch.Tensor):
 
 
 def rgb_forward(params, cfg: AvatarConfig, image: torch.Tensor,
-                label: torch.Tensor, *, label_convention: str = "opencv"):
+                label: torch.Tensor, *, person_2: bool = False,
+                label_convention: str = "opencv"):
     """image (B, size, size, 3) in [-1, 1], label (B, 25) → image
-    (B, 512, 512, 3) [, pose (B, 25) when cfg.out_pose]."""
+    (B, 512, 512, 3) [, pose (B, 25) when cfg.out_pose]; person_2 renders
+    through the second subspace."""
     weights = rgb_get_weights(params, cfg, image)
     pose = None
     if cfg.out_pose:
         weights, pose = weights
-    img = get_image(params, cfg, get_latent(params, weights, cfg), label,
-                    label_convention=label_convention)
+    img = get_image(params, cfg, get_latent(params, weights, cfg, person_2),
+                    label, label_convention=label_convention)
     return (img, pose) if cfg.out_pose else img
 
 

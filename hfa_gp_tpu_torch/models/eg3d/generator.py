@@ -7,7 +7,9 @@ hfa_gp_tpu/models/eg3d/generator.py).
     out["image_depth"] (B, 128, 128, 1)
 
 `c` is a label in the OpenCV convention. Outputs keep the JAX layout
-(channel-last); the networks run NCHW inside.
+(channel-last) and the dtype of ws (fp32); the networks run NCHW inside,
+their synthesis chains in `compute_dtype` (bf16 under `--bf16`; None keeps
+the params' dtype).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ class EG3DConfig:
     backbone: nets.BackboneConfig = field(default_factory=nets.BackboneConfig)
     sr: nets.SRConfig = field(default_factory=nets.SRConfig)
     render: rnd.RenderConfig = field(default_factory=rnd.RenderConfig)
+    compute_dtype: torch.dtype | None = None
 
     @property
     def num_ws(self) -> int:
@@ -70,7 +73,8 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
     ray_origins, ray_directions = cam.generate_rays(cam2world, intrinsics, res)
 
     planes = nets.backbone_apply(params["backbone"], cfg.backbone, ws,
-                                 noise_mode=noise_mode)
+                                 noise_mode=noise_mode,
+                                 compute_dtype=cfg.compute_dtype)
     h, w = planes.shape[2:]
     planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
     planes = planes.permute(0, 1, 3, 4, 2)               # (B, 3, H, W, C)
@@ -83,7 +87,7 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
     rgb_image = feature_image[:, :3]
     sr_image = nets.superresolution_apply(
         params["superresolution"], cfg.sr, rgb_image, feature_image, ws,
-        noise_mode="none")
+        noise_mode="none", compute_dtype=cfg.compute_dtype)
     return {"image": sr_image.permute(0, 2, 3, 1),
             "image_raw": rgb_image.permute(0, 2, 3, 1),
             "image_depth": depth_samples.reshape(b, res, res, 1)}

@@ -5,7 +5,10 @@ and the super-resolution head.
 `init_*` build nested dicts of tensors (OIHW conv weights) from an explicit
 `torch.Generator`; `*_apply` are plain functions on tensors that read a
 param tree by the JAX keys (a dict or a `utils.convert.ParamTree`).
-Feature maps are NCHW inside.
+Feature maps are NCHW inside. `compute_dtype` (bf16 under `--bf16`; None,
+the default, keeps the dtype of the params) is the dtype of the synthesis
+chain `x`; each torgb output is cast back to the dtype of the latents
+(fp32), so the image / plane chain stays fp32, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ...core import ops
 
@@ -53,13 +57,15 @@ class MappingConfig:
 
 @dataclass(frozen=True)
 class SRConfig:
-    """SuperresolutionHybrid8XDC: 128² neural render → 512² RGB."""
+    """SuperresolutionHybrid8XDC: 128² neural render → 512² RGB; inputs
+    below 128² are bilinearly resized up first (antialiased)."""
     input_resolution: int = 128
     output_resolution: int = 512
     in_channels: int = 32
     block_channels: tuple[int, int] = (256, 128)
     w_dim: int = 512
     conv_clamp: float | None = 256.0
+    antialias: bool = True
     fir: tuple[int, ...] = (1, 3, 3, 1)
 
 
@@ -178,7 +184,8 @@ def synth_layer_apply(p, x: torch.Tensor, w: torch.Tensor, *, up: int = 1,
     if noise_mode not in ("const", "none"):
         raise ValueError(f"noise_mode {noise_mode!r}")
     if "noise_strength" in p and noise_mode == "const":
-        y = y + (p["noise_const"] * p["noise_strength"])[None, None]
+        y = y + (p["noise_const"] * p["noise_strength"]).to(y.dtype)[None,
+                                                                       None]
     return ops.bias_act(y, p["bias"], act="lrelu", clamp=conv_clamp)
 
 
@@ -192,14 +199,17 @@ def torgb_apply(p, x: torch.Tensor, w: torch.Tensor, *,
 
 def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
                 ws_block: torch.Tensor, *, fir, conv_clamp, up: bool,
-                noise_mode: str = "const"):
+                noise_mode: str = "const",
+                compute_dtype: torch.dtype | None = None):
     """One skip-architecture SynthesisBlock; ws_block (B, 3, w_dim) holds
-    the conv0 (if present), conv1 and torgb slots. NCHW in and out."""
+    the conv0 (if present), conv1 and torgb slots. NCHW in and out; x
+    runs in `compute_dtype` (None: as it comes), img in ws_block's dtype."""
     w_i = 0
-    if "const" in p:
-        b = ws_block.shape[0]
-        x = p["const"][None].expand(b, -1, -1, -1)
-    else:
+    x = p["const"][None].expand(ws_block.shape[0], -1, -1, -1) \
+        if "const" in p else x
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    if "conv0" in p:
         x = synth_layer_apply(p["conv0"], x, ws_block[:, w_i],
                               up=2 if up else 1, fir=fir,
                               conv_clamp=conv_clamp, noise_mode=noise_mode)
@@ -207,7 +217,8 @@ def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
     x = synth_layer_apply(p["conv1"], x, ws_block[:, w_i], fir=fir,
                           conv_clamp=conv_clamp, noise_mode=noise_mode)
     w_i += 1
-    y = torgb_apply(p["torgb"], x, ws_block[:, w_i], conv_clamp=conv_clamp)
+    y = torgb_apply(p["torgb"], x, ws_block[:, w_i],
+                    conv_clamp=conv_clamp).to(ws_block.dtype)
     if img is not None:
         if up:
             img = ops.upsample2d(img, ops.make_fir_kernel(fir))
@@ -218,8 +229,10 @@ def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
 
 
 def backbone_apply(params, cfg: BackboneConfig, ws: torch.Tensor, *,
-                   noise_mode: str = "const") -> torch.Tensor:
-    """ws (B, num_ws, w_dim) → tri-plane stack (B, 96, 256, 256) NCHW.
+                   noise_mode: str = "const",
+                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """ws (B, num_ws, w_dim) → tri-plane stack (B, 96, 256, 256) NCHW, in
+    ws's dtype whatever `compute_dtype` the synthesis chain runs in.
 
     Each block consumes `num_conv` new w's and its torgb reads the next
     block's first w; the last torgb has a slot of its own."""
@@ -238,27 +251,36 @@ def backbone_apply(params, cfg: BackboneConfig, ws: torch.Tensor, *,
                                  dim=1)
         x, img = block_apply(params[f"b{res}"], x, img, ws_block,
                              fir=cfg.fir, conv_clamp=cfg.conv_clamp,
-                             up=not is_first, noise_mode=noise_mode)
+                             up=not is_first, noise_mode=noise_mode,
+                             compute_dtype=compute_dtype)
         w_idx += num_conv
     return img
 
 
+def bilinear_resize(x: torch.Tensor, size: int, antialias: bool
+                    ) -> torch.Tensor:
+    """NCHW x → (size, size), bilinear with half-pixel centres (the JAX
+    package's `jax.image.resize(..., "bilinear", antialias)`)."""
+    return F.interpolate(x, size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=antialias)
+
+
 def superresolution_apply(params, cfg: SRConfig, rgb: torch.Tensor,
                           x: torch.Tensor, ws: torch.Tensor, *,
-                          noise_mode: str = "none") -> torch.Tensor:
+                          noise_mode: str = "none",
+                          compute_dtype: torch.dtype | None = None
+                          ) -> torch.Tensor:
     """rgb (B, 3, h, w), features (B, 32, h, w), ws (B, num_ws, w_dim) →
-    (B, 3, 512, 512), all NCHW; conditioned on the last w, repeated 3x."""
+    (B, 3, 512, 512) in ws's dtype, all NCHW; conditioned on the last w,
+    repeated 3x. Inputs below `cfg.input_resolution` are resized up to it
+    first."""
     if x.shape[2] < cfg.input_resolution:
-        # jax.image.resize(antialias) of the JAX package; not reached at
-        # the default widths (neural rendering resolution 128 = SR input)
-        raise NotImplementedError(
-            f"superresolution_apply: input {x.shape[2]}² is below "
-            f"{cfg.input_resolution}²; the bilinear pre-resize is not ported")
+        x = bilinear_resize(x, cfg.input_resolution, cfg.antialias)
+        rgb = bilinear_resize(rgb, cfg.input_resolution, cfg.antialias)
     w_last = ws[:, -1:].expand(-1, 3, -1)
-    x, rgb = block_apply(params["block0"], x, rgb, w_last, fir=cfg.fir,
-                         conv_clamp=cfg.conv_clamp, up=True,
-                         noise_mode=noise_mode)
-    x, rgb = block_apply(params["block1"], x, rgb, w_last, fir=cfg.fir,
-                         conv_clamp=cfg.conv_clamp, up=True,
-                         noise_mode=noise_mode)
+    for name in ("block0", "block1"):
+        x, rgb = block_apply(params[name], x, rgb, w_last, fir=cfg.fir,
+                             conv_clamp=cfg.conv_clamp, up=True,
+                             noise_mode=noise_mode,
+                             compute_dtype=compute_dtype)
     return rgb

@@ -1,9 +1,12 @@
 """Where one reenactment batch spends its time on the card, at full width.
 
     python -m hfa_gp_tpu_torch.tools.profile_reenact [--batch 8] [--iters 5]
+        [--bf16]
 
 Prints, for seeded random params and a seeded batch (the inputs of
-`chip_smoke.py` [6]) in fp32 with TF32 off, under inference mode:
+`chip_smoke.py` [6]) in fp32 with TF32 off (with `--bf16`: the synthesis
+chains and the decoder in bf16, as `--bf16` of the CLIs), under inference
+mode:
   * the card's name and power limit (`nvidia-smi`);
   * the batch's stages timed alone with CUDA events (median over --iters):
     the encoder, the subspace (QR and latent), and synthesis cut into the
@@ -40,6 +43,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 synthesis chains and decoder")
     return p
 
 
@@ -50,6 +55,10 @@ def main(args) -> None:
     print(card_line(), flush=True)
     dev = "cuda"
     cfg = heads.AvatarConfig()
+    if args.bf16:
+        cfg = common.with_dtype(cfg, torch.bfloat16)
+    print(f"synthesis chains and decoder in "
+          f"{'bf16' if args.bf16 else 'fp32'}", flush=True)
     params = heads.init_avatar_rgb(torch.Generator().manual_seed(SEED), cfg,
                                    dev)
     g = torch.Generator().manual_seed(SEED + 1)
@@ -70,7 +79,8 @@ def main(args) -> None:
 
         def planes_of(ws):
             p = nets.backbone_apply(gen["backbone"], ecfg.backbone, ws,
-                                    noise_mode="const")
+                                    noise_mode="const",
+                                    compute_dtype=ecfg.compute_dtype)
             h, w = p.shape[2:]
             return p.reshape(args.batch, 3, -1, h, w).permute(0, 1, 3, 4, 2) \
                 .contiguous()
@@ -93,7 +103,8 @@ def main(args) -> None:
                     args.batch, -1, res, res)[:, :3],
                 out["feats"].permute(0, 2, 1).reshape(args.batch, -1, res,
                                                       res),
-                out["ws"], noise_mode="none")),
+                out["ws"], noise_mode="none",
+                compute_dtype=ecfg.compute_dtype)),
         }
         times: dict[str, list[float]] = {k: [] for k in stages}
         for _ in range(args.iters):

@@ -1,8 +1,11 @@
 """Where one RGB training step spends its time on the card, at full width.
 
     python -m hfa_gp_tpu_torch.tools.profile_train [--batch 2] [--steps 3]
+        [--bf16]
 
-Prints, for seeded random params and a seeded batch in fp32 with TF32 off:
+Prints, for seeded random params and a seeded batch in fp32 with TF32 off
+(with `--bf16`: the synthesis chains and the decoder in bf16, as `--bf16`
+of the CLIs; master weights, image, LPIPS and loss stay fp32):
   * the card's name and power limit (`nvidia-smi`);
   * the step's stages timed with CUDA events (median over --steps): the
     forward (`train.rgb.loss_fn`, with its sub-stages encoder, subspace,
@@ -60,6 +63,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=2)
     p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 synthesis chains and decoder")
     return p
 
 
@@ -70,6 +75,10 @@ def main(args) -> None:
     print(card_line(), flush=True)
     dev = "cuda"
     cfg = heads.AvatarConfig()
+    if args.bf16:
+        cfg = common.with_dtype(cfg, torch.bfloat16)
+    print(f"synthesis chains and decoder in "
+          f"{'bf16' if args.bf16 else 'fp32'}", flush=True)
     g = torch.Generator().manual_seed(SEED)
     state = init_state(heads.init_avatar_rgb(g, cfg, dev))
     lp = ParamTree(lpips_mod.init_lpips(g)).to(dev)

@@ -1,11 +1,15 @@
-"""Observability of the port (counterpart of the framework-free part of
+"""Observability of the port (counterpart of
 hfa_gp_tpu/utils/observability.py): the running-average meter, the
-throughput / ETA logger of the arcface trainer, and rank-0 logging."""
+throughput / ETA logger of the arcface trainer, rank-0 logging, and
+profiler traces with named regions (`trace`, `annotate`)."""
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
+
+import torch
 
 LOGGER_NAME = "hfa_gp_tpu_torch"
 
@@ -70,6 +74,27 @@ class ThroughputLogger:
         self.loss.reset()
         self._tic = time.time()
         self._start_step = step
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with `torch.profiler` (host activity, and the
+    card's kernels when CUDA is available) and write a Chrome trace,
+    `{host}_{pid}.{time}.pt.trace.json`, into `log_dir` (view it in
+    TensorBoard's profiler plugin, Perfetto or chrome://tracing)."""
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+def annotate(name: str):
+    """Named region inside a trace (a no-op outside one)."""
+    return torch.profiler.record_function(name)
 
 
 def init_logging(rank: int = 0, log_file: str | None = None

@@ -165,12 +165,26 @@ def test_superresolution_matches_jax():
 
 
 def test_superresolution_raises_below_input_resolution():
-    _, _, tp = _gen_params(4)
-    sr = dataclasses.replace(torch_small_config().sr, input_resolution=32)
-    x = torch.zeros(1, 32, 16, 16)
-    with pytest.raises(NotImplementedError):
-        tnets.superresolution_apply(tp["superresolution"], sr, x[:, :3], x,
-                                    torch.zeros(1, 14, 512))
+    """It raised while the bilinear pre-resize was not ported; now 16²
+    features below a 32² input resolution are resized up first, as in the
+    JAX package, and the result matches JAX's."""
+    cfg, jp, tp = _gen_params(4)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((1, 16, 16, 32)).astype(np.float32)
+    ws = rng.standard_normal((1, cfg.num_ws, 512)).astype(np.float32)
+    jsr = dataclasses.replace(cfg.sr, input_resolution=32,
+                              output_resolution=128)
+    want = np.asarray(jnets.superresolution_apply(
+        jp["superresolution"], jsr, jnp.asarray(feats[..., :3]),
+        jnp.asarray(feats), jnp.asarray(ws)))
+    sr = dataclasses.replace(torch_small_config().sr, input_resolution=32,
+                             output_resolution=128)
+    x = torch.from_numpy(feats).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = tnets.superresolution_apply(tp["superresolution"], sr, x[:, :3],
+                                          x, torch.from_numpy(ws))
+    assert got.shape == (1, 3, 128, 128)
+    _close(got.permute(0, 2, 3, 1).numpy(), want)
 
 
 @pytest.mark.parametrize("out_pose,use_softmax", [(False, False),

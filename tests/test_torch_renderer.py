@@ -106,16 +106,20 @@ def test_sample_importance_and_windowed():
 
 
 def test_random_placements_are_sorted_and_in_range():
+    """Uniform draws (from a seeded generator, as `render_rays` draws them
+    up front) place the samples sorted and inside the ray's range."""
     z, w = _coarse_weights(4, nr=2 * 25)
     zv, wv = _t(z.reshape(2, 25, -1, 1)), _t(w.reshape(2, 25, -1, 1))
     g = torch.Generator().manual_seed(0)
-    for fine in (trnd.sample_importance(zv, wv, 12, generator=g),
-                 trnd.sample_importance_windowed(zv, wv, 3, 4, 2.25, 3.3,
-                                                 generator=g)):
+    for fine in (trnd.sample_importance(zv, wv, 12,
+                                        u=torch.rand((50, 12), generator=g)),
+                 trnd.sample_importance_windowed(
+                     zv, wv, 3, 4, 2.25, 3.3,
+                     jitter=torch.rand((50, 3, 4), generator=g))):
         assert bool((fine[..., 1:, 0] >= fine[..., :-1, 0]).all())
         assert float(fine.min()) >= 2.25 and float(fine.max()) <= 3.3
     d = trnd.sample_stratified(torch.zeros(2, 5, 3), 2.25, 3.3, 8,
-                               generator=g)
+                               jitter=torch.rand((2, 5, 8, 1), generator=g))
     base = torch.linspace(2.25, 3.3, 8)[None, None, :, None]
     assert bool(((d - base) >= 0).all() and ((d - base) <= 0.15 + 1e-6).all())
 

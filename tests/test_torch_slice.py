@@ -148,8 +148,8 @@ def small_cli_config(monkeypatch):
     """The CLI builds full-width configs; the CPU test runs small ones."""
     real = common.avatar_config
 
-    def small(args):
-        real(args)                       # keep the flag checks
+    def small(args, **kw):
+        real(args, **kw)                 # keep the flag checks
         return torch_small_avatar("global")
 
     monkeypatch.setattr(common, "avatar_config", small)
@@ -193,10 +193,8 @@ def test_cli_random_init_and_side_by_side(small_cli_config, dataset_root,
     assert glob.glob(os.path.join(out, "t", "tcat.*"))
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--n_model", "2"],
+@pytest.mark.parametrize("flags", [["--n_model", "2"],
                                    ["--no_pallas_sampler"],
-                                   ["--trace_dir", "x"],
-                                   ["--person_2", "p"],
                                    ["--model_path", REPO]])
 def test_cli_raises_on_what_the_port_does_not_do(small_cli_config,
                                                  dataset_root, tmp_path,
@@ -206,6 +204,22 @@ def test_cli_raises_on_what_the_port_does_not_do(small_cli_config,
     with pytest.raises(NotImplementedError):
         run_recon_video_rgb.main(_cli_args(dataset_root,
                                            str(tmp_path / "demo"), *flags))
+
+
+@pytest.mark.parametrize("name", ["train_rgb", "train_3dmm", "train_audio",
+                                  "run_recon_video_3dmm",
+                                  "run_recon_video_audio"])
+def test_other_avatar_clis_raise_on_trace_dir(name, tmp_path, monkeypatch):
+    """Only run_recon_video_rgb traces, as in the JAX package, which
+    ignores --trace_dir in the other five; the port raises rather than
+    ignore a flag, before anything is written."""
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"hfa_gp_tpu_torch.cli.{name}")
+    args = mod.build_argparser().parse_args(["--trace_dir", "t",
+                                             "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="--trace_dir"):
+        mod.main(args)
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("smooth_sigma", [None, 1.5])
@@ -309,7 +323,7 @@ def test_port_imports_no_jax():
         "'models.arcface.mobilefacenet', 'models.arcface.vit', "
         "'models.arcface.norm', 'models.arcface.verification', "
         "'models.arcface.ijb', 'utils.export', 'cli.eval_verification', "
-        "'cli.eval_ijb'):\n"
+        "'cli.eval_ijb', 'data.poses'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"

@@ -181,8 +181,8 @@ def small_cli_config(monkeypatch):
     """The CLIs build full-width configs; the CPU test runs small ones."""
     real = common.avatar_config
 
-    def small(args):
-        real(args)                       # keep the flag checks
+    def small(args, **kw):
+        real(args, **kw)                 # keep the flag checks
         return theads.AvatarConfig(size=64, dim_shape=args.latent_dim_shape,
                                    eg3d=torch_small_config("stratified"))
 

@@ -264,9 +264,11 @@ def small_cli_config(monkeypatch):
     """The CLIs build full-width configs; the CPU test runs small ones."""
     real = common.avatar_config
 
-    def small(args):
-        real(args)                       # keep the flag checks
+    def small(args, **kw):
+        cfg = real(args, **kw)           # keep the flag checks
         return theads.AvatarConfig(size=64, dim_shape=args.latent_dim_shape,
+                                   person_2=cfg.person_2,
+                                   same_bases=cfg.same_bases,
                                    eg3d=torch_small_config("stratified"))
 
     monkeypatch.setattr(common, "avatar_config", small)
@@ -432,14 +434,18 @@ REFERENCE_LINE = ["--addr", "localhost", "--port", "12345", "--run_id", "x",
 def test_avatar_clis_take_the_reference_command_line(cli, monkeypatch,
                                                      small_cli_config,
                                                      tmp_path):
-    """The reference's flags parse (--addr and --port are ignored);
-    the second person's subspace and more than one process raise, in
-    `main`, before anything is written."""
+    """The reference's flags parse (--addr and --port are ignored); the
+    second person's flags reach the config (they raised before the
+    subspace was ported); more than one process raises, in `main`, before
+    anything is written."""
     monkeypatch.chdir(tmp_path)
     args = cli.build_argparser().parse_args(REFERENCE_LINE)
     assert (args.addr, args.port, args.run_id) == ("localhost", "12345", "x")
     assert isinstance(common.avatar_config(args), theads.AvatarConfig)
-    for extra in (["--same_bases"], ["--init"], ["--num_processes", "2"],
+    cfg = common.avatar_config(cli.build_argparser().parse_args(
+        REFERENCE_LINE + ["--person_2", "p", "--same_bases", "--init"]))
+    assert cfg.person_2 and cfg.same_bases
+    for extra in (["--num_processes", "2"],
                   ["--coordinator_address", "localhost:1234"]):
         with pytest.raises(NotImplementedError):
             cli.main(cli.build_argparser().parse_args(REFERENCE_LINE
