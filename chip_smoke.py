@@ -134,6 +134,25 @@ result line:
      the checkpoint, which `run_recon_video_rgb.main --bf16 --model_path`
      reads; then `train_3dmm.main` and `train_audio.main --bf16`, 2 steps
      each, with 14's and 15's launches a step.
+ 31. the ways in, with no JAX on the machine: reference-format sources at
+     full width, written from seeded trees by the inverse of each map (an
+     EG3D G_ema pickle of `torch_utils.persistence` modules; RGB (with
+     `subspace_2`), 3DMM and audio avatar .pt checkpoints; LPIPS,
+     facenet-pytorch and Sandberg MTCNN, Deep3DFaceRecon and DeepSpeech
+     sources), each converted by `python -m hfa_gp_tpu_torch.tools.
+     convert_*` in a process of its own (seconds, peak host memory, npz
+     size), every npz equal to its source tree bit for bit and loadable
+     by its module; then a batch of 8 through `run_recon_video_rgb`,
+     `_3dmm` and `_audio --smooth` with `--model_npz`, each within 1e-6 of
+     the same params rendered directly, K1 and K4 twice a batch;
+ 32. `train_arcface.main --rec` (iresnet50, fp32, 1,000,000 classes,
+     batch 256, 6 steps) on 2,048 seeded-noise JPEG records, through an
+     ArrayRecord file where `array_record` imports, else the same dataset
+     and stream over an in-memory reader (it says which): the batches on
+     the card equal to the CPU decode bit for bit, K5 and K6 once a step,
+     finite losses, samples/s beside [10]'s and [12]'s synthetic figures;
+ 33. a line saying that the native image loader is not ported (the card's
+     machine lacks libpng's and libjpeg's headers).
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step (a bf16 one for the bf16
@@ -141,8 +160,9 @@ entries, whose launches are [24]'s). The line before the last is a
 JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, with no result line, when CUDA is unavailable or when
-it is run outside a checkout. It imports nothing of JAX or of the JAX
-package `hfa_gp_tpu`, and checks that before the result line.
+it is run outside a checkout. It imports nothing of JAX, of the JAX
+package `hfa_gp_tpu` or of the repository's root `tools`, and checks that
+before the result line.
 """
 
 from __future__ import annotations
@@ -152,6 +172,7 @@ import glob
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1490,14 +1511,14 @@ def check_arcface_losses(what: str, losses, n_classes: int, steps: int):
         fail(f"{what}: the loss rose: {losses}")
 
 
-def phase_arcface_path(tmp: str) -> dict[str, int]:
+def phase_arcface_path(tmp: str) -> tuple[dict[str, int], float]:
     """[10] train_arcface.main: dense with checkpoints, resumed, sparse.
-    Returns the dense run's launch counts."""
+    Returns the dense run's launch counts and the samples/s it reported."""
     from hfa_gp_tpu_torch.train import checkpoint as ckpt
     out = os.path.join(tmp, "arcface")
     steps = 6
     # -- dense, 1,000,000 classes
-    losses, launches, seconds, peak, _ = run_arcface_cli(arc_args(
+    losses, launches, seconds, peak, sps = run_arcface_cli(arc_args(
         *ARC_CONFIGS["dense"], "--num_steps", str(steps), "--log_freq", "2",
         "--output", out, "--save_freq", "3"))
     cdir = os.path.join(out, "checkpoint")
@@ -1551,7 +1572,7 @@ def phase_arcface_path(tmp: str) -> dict[str, int]:
     if not peak < limit:
         fail(f"the sparse run's peak {peak / GIB:.3f} GiB leaves room for a "
              f"table-sized gradient (limit {limit / GIB:.3f} GiB)")
-    return launches
+    return launches, sps
 
 
 def phase_arcface_card_vs_cpu() -> None:
@@ -1649,13 +1670,15 @@ def phase_arcface_card_vs_cpu() -> None:
                  f"{l2[worst_l2]} in the L2 norm (with {act})")
 
 
-def phase_arcface_throughput() -> None:
+def phase_arcface_throughput() -> float:
     """[12] steady-state samples/s (host clock around synchronised steps)
-    and peak device memory at the two configurations of [10]."""
+    and peak device memory at the two configurations of [10]. Returns the
+    dense configuration's samples/s."""
     from hfa_gp_tpu_torch.cli import train_arcface
     from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
     from hfa_gp_tpu_torch.train import arcface as arc
     iters, warmup = 5, 2
+    sps = {}
     for name, flags in ARC_CONFIGS.items():
         args = arc_args(*flags)
         pfc = PartialFC(args.num_classes, ARC_DIM,
@@ -1685,7 +1708,9 @@ def phase_arcface_throughput() -> None:
               f"ms per step (median of {iters}), "
               f"{ARC_BATCH * 1e3 / ms:.3f} samples/s, peak device memory "
               f"{peak / GIB:.3f} GiB", flush=True)
+        sps[name] = ARC_BATCH * 1e3 / ms
         del state, step
+    return sps["dense"]
 
 
 def phase_probe_path() -> dict[str, int]:
@@ -3375,6 +3400,808 @@ def phase_person_2_bf16(tmp: str) -> None:
 
 
 
+# [31]-[32], the ways in: the port's converters of the reference's weight
+# files and arcface's --rec record stream. The reference-format sources
+# are written here, from JAX-layout trees, by the inverse of each
+# converter's map (the JAX package's test helpers for this import JAX):
+# NVIDIA's persistence pickle of G_ema, the reference's avatar .pt files,
+# and the LPIPS, MTCNN (both layouts), Deep3DFaceRecon and DeepSpeech
+# sources. tests/test_torch_convert_tools.py runs the same writers at small
+# sizes against the JAX package's converters.
+#   a render from the converted npz against the same params rendered
+#   directly: the same kernels on the same values. cuDNN's default forward
+#   convolutions are not deterministic ([31] prints how far one batch
+#   rendered twice lands by default), so both renders run with
+#   cudnn.deterministic
+CONVERT_RENDER_RTOL = 1e-6
+CONVERT_BATCH = 8
+REC_RECORDS, REC_STEPS = 2048, 6
+
+
+def jax_layout(tree) -> dict:
+    """A param tree in the port's layout (a `ParamTree` or nested dict of
+    tensors) → nested dict of numpy arrays in the JAX package's layout:
+    the inverse of `utils/convert.convert_tree` (4-D `weight` OIHW → HWIO,
+    3-D `weight` OIW → WIO, `const` CHW → HWC)."""
+    if isinstance(tree, torch.nn.Module):
+        nested: dict = {}
+        for key, t in tree.state_dict().items():
+            *path, leaf = key.split(".")
+            node = nested
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+        tree = nested
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = jax_layout(v)
+            continue
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
+        if k == "weight" and a.ndim == 4:
+            a = a.transpose(2, 3, 1, 0)
+        elif k == "weight" and a.ndim == 3:
+            a = a.transpose(2, 1, 0)
+        elif k == "const" and a.ndim == 3:
+            a = a.transpose(1, 2, 0)
+        out[k] = np.array(a, order="C")        # a 0-d leaf stays 0-d
+    return out
+
+
+def _oihw(w, flip: bool = False) -> np.ndarray:
+    w = np.asarray(w)
+    if flip:
+        w = w[::-1, ::-1]
+    return np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+
+
+def eg3d_state_dict(gen: dict) -> dict[str, np.ndarray]:
+    """JAX-layout EG3D generator → G_ema's state dict (torch names, NCHW):
+    the inverse of convert_pickle.convert_generator, conv0 of every
+    up-sampling block flipped back."""
+    sd = {}
+
+    def block(prefix: str, blk: dict, up: bool) -> None:
+        for conv in ("conv0", "conv1"):
+            if conv not in blk:
+                continue
+            c = blk[conv]
+            sd[f"{prefix}.{conv}.weight"] = _oihw(c["weight"],
+                                                  up and conv == "conv0")
+            sd[f"{prefix}.{conv}.bias"] = c["bias"]
+            sd[f"{prefix}.{conv}.affine.weight"] = c["affine"]["weight"]
+            sd[f"{prefix}.{conv}.affine.bias"] = c["affine"]["bias"]
+            for n in ("noise_strength", "noise_const"):
+                if n in c:
+                    sd[f"{prefix}.{conv}.{n}"] = c[n]
+        if "const" in blk:
+            sd[f"{prefix}.const"] = np.ascontiguousarray(
+                blk["const"].transpose(2, 0, 1))
+        if "torgb" in blk:
+            t = blk["torgb"]
+            sd[f"{prefix}.torgb.weight"] = _oihw(t["weight"])
+            sd[f"{prefix}.torgb.bias"] = t["bias"]
+            sd[f"{prefix}.torgb.affine.weight"] = t["affine"]["weight"]
+            sd[f"{prefix}.torgb.affine.bias"] = t["affine"]["bias"]
+
+    for name, v in gen["mapping"].items():
+        if name == "w_avg":
+            sd["backbone.mapping.w_avg"] = v
+        else:
+            sd[f"backbone.mapping.{name}.weight"] = v["weight"]
+            sd[f"backbone.mapping.{name}.bias"] = v["bias"]
+    for name, blk in gen["backbone"].items():
+        block(f"backbone.synthesis.{name}", blk, up=name != "b4")
+    for i, fc in ((0, "fc0"), (2, "fc1")):
+        sd[f"decoder.net.{i}.weight"] = gen["decoder"][fc]["weight"]
+        sd[f"decoder.net.{i}.bias"] = gen["decoder"][fc]["bias"]
+    for name in ("block0", "block1"):
+        block(f"superresolution.{name}", gen["superresolution"][name],
+              up=True)
+    return sd
+
+
+class _PersistentModule:
+    """A module as NVIDIA's `torch_utils.persistence` pickles it:
+    `_reconstruct_persistent_obj(meta)`, with the module's `__dict__` (its
+    `_parameters`, `_buffers` and `_modules`) as `meta["state"]`."""
+
+    def __init__(self, class_name: str):
+        self.class_name = class_name
+        self.state = {"training": False, "_parameters": {}, "_buffers": {},
+                      "_modules": {}}
+
+    def __reduce__(self):
+        from torch_utils.persistence import _reconstruct_persistent_obj
+        return (_reconstruct_persistent_obj, (dict(
+            type="class", version=6, module_src="# source of the network",
+            class_name=self.class_name, state=self.state),))
+
+
+def write_eg3d_pickle(gen: dict, path: str) -> None:
+    """The generator as NVIDIA's network pickle holds G_ema: a tree of
+    persistent modules under classes of `torch_utils.persistence`, the
+    OSG decoder's `net` a plain torch.nn.Sequential, w_avg and the noise
+    constants buffers, beside a `dnnlib.util.EasyDict`. The two packages
+    are registered only while pickling, as on a machine that has them."""
+    import pickle
+    import types
+    root = _PersistentModule("TriPlaneGenerator")
+    for name, arr in eg3d_state_dict(gen).items():
+        *parts, leaf = name.split(".")
+        node = root
+        for part in parts:
+            mods = node.state["_modules"] if isinstance(
+                node, _PersistentModule) else node._modules
+            if part not in mods:
+                # the OSG decoder's `net` is the one plain torch module
+                mods[part] = (torch.nn.Sequential() if part == "net"
+                              else _PersistentModule(part))
+            node = mods[part]
+        kind = "_buffers" if leaf in ("w_avg", "noise_const") \
+            else "_parameters"
+        node.state[kind][leaf] = torch.from_numpy(np.array(arr))
+    net = root.state["_modules"]["decoder"].state["_modules"]["net"]
+    net._modules["1"] = torch.nn.Softplus()
+    net._modules = dict(sorted(net._modules.items()))
+
+    def reconstruct(meta):
+        raise AssertionError("only pickled here")
+
+    class EasyDict(dict):
+        pass
+
+    pers = types.ModuleType("torch_utils.persistence")
+    reconstruct.__module__ = pers.__name__
+    reconstruct.__qualname__ = reconstruct.__name__ = \
+        "_reconstruct_persistent_obj"
+    pers._reconstruct_persistent_obj = reconstruct
+    util = types.ModuleType("dnnlib.util")
+    EasyDict.__module__, EasyDict.__qualname__ = util.__name__, "EasyDict"
+    util.EasyDict = EasyDict
+    fake = {"torch_utils": types.ModuleType("torch_utils"),
+            "torch_utils.persistence": pers,
+            "dnnlib": types.ModuleType("dnnlib"), "dnnlib.util": util}
+    saved = {name: sys.modules.get(name) for name in fake}
+    sys.modules.update(fake)
+    try:
+        with open(path, "wb") as f:
+            pickle.dump({"G_ema": root, "augment_pipe": None,
+                         "training_set_kwargs": EasyDict(resolution=512)}, f)
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = mod
+
+
+def _linear_stack_sd(stack: dict, prefix: str) -> dict[str, np.ndarray]:
+    return {f"{prefix}{i}.{p}": stack[f"fc{i}"][p]
+            for i in range(len(stack)) for p in ("weight", "bias")}
+
+
+def encoder_state_dict(enc: dict) -> dict[str, np.ndarray]:
+    """JAX-layout encoder → the reference Encoder's state dict (ConvLayers
+    as nn.Sequential, Blur's constant kernel buffer included)."""
+    app = enc["net_app"]
+    blur = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64
+    sd = {"net_app.convs.0.0.weight": _oihw(app["stem"]["weight"]),
+          "net_app.convs.0.1.bias": app["stem"]["act_bias"]}
+    n = sum(k.startswith("res") for k in app)
+    for i in range(n):
+        r, b = app[f"res{i}"], f"net_app.convs.{i + 1}"
+        sd.update({f"{b}.conv1.0.weight": _oihw(r["conv1"]["weight"]),
+                   f"{b}.conv1.1.bias": r["conv1"]["act_bias"],
+                   f"{b}.conv2.0.kernel": blur,
+                   f"{b}.conv2.1.weight": _oihw(r["conv2"]["weight"]),
+                   f"{b}.conv2.2.bias": r["conv2"]["act_bias"],
+                   f"{b}.skip.0.kernel": blur,
+                   f"{b}.skip.1.weight": _oihw(r["skip"]["weight"])})
+    sd[f"net_app.convs.{n + 1}.weight"] = _oihw(app["final"]["weight"])
+    sd.update(_linear_stack_sd(enc["fc"], "fc."))
+    if "pose" in enc:
+        sd.update(_linear_stack_sd(enc["pose"], "pose."))
+    return sd
+
+
+def _conv1d_sd(tree: dict, names, prefix: str) -> dict[str, np.ndarray]:
+    return {k: v for j, idx in enumerate(names) for k, v in (
+        (f"{prefix}.{idx}.weight", np.ascontiguousarray(
+            tree[f"conv{j}"]["weight"].transpose(2, 1, 0))),
+        (f"{prefix}.{idx}.bias", tree[f"conv{j}"]["bias"]))}
+
+
+def write_avatar_pt(tree: dict, head: str, path: str, dim: int = 512
+                    ) -> None:
+    """A JAX-layout avatar tree (for "audio" {"model", "audnet",
+    "audattnet"}) → the reference trainer's checkpoint: {"gen": state
+    dict, "g_optim" | "w_optim": an optimizer's state, "args": the
+    run's argparse.Namespace}, plus "AudNet" / "AudAttNet" for audio."""
+    import argparse
+    model = tree["model"] if head == "audio" else tree
+    sd = {f"generator.{k}": v
+          for k, v in eg3d_state_dict(model["generator"]).items()}
+    bases = model["subspace"]["bases"]
+    sd["bases"] = bases.reshape(bases.shape[0], -1, dim)
+    sd["delta"] = model["subspace"]["delta"].reshape(1, -1, dim)
+    if "subspace_2" in model:
+        s2 = model["subspace_2"]
+        if "bases" in s2:
+            sd["bases_2"] = s2["bases"].reshape(s2["bases"].shape[0], -1, dim)
+        sd["delta_2"] = s2["delta"].reshape(1, -1, dim)
+    if head == "rgb":
+        sd.update({f"encoder.{k}": v
+                   for k, v in encoder_state_dict(model["encoder"]).items()})
+    else:
+        sd.update(_linear_stack_sd(model["weights_mlp"], "weights_3dmm.fc."))
+    ckpt = {"gen": {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+            "g_optim" if head == "rgb" else "w_optim": {
+                "state": {}, "param_groups": [{"lr": 3e-4, "params": []}]},
+            "args": argparse.Namespace(size=256, latent_dim_style=dim,
+                                       person="person_3", iter=800000)}
+    if head == "audio":
+        aud, att = tree["audnet"], tree["audattnet"]
+        ckpt["AudNet"] = {k: torch.from_numpy(v) for k, v in {
+            **_conv1d_sd(aud, (0, 2, 4, 6), "encoder_conv"),
+            **{f"encoder_fc1.{idx}.{p}": aud[f"fc{j}"][p]
+               for j, idx in enumerate((0, 2)) for p in ("weight", "bias")},
+        }.items()}
+        ckpt["AudAttNet"] = {k: torch.from_numpy(v) for k, v in {
+            **_conv1d_sd(att, (0, 2, 4, 6, 8), "attentionConvNet"),
+            "attentionNet.0.weight": att["att_fc"]["weight"],
+            "attentionNet.0.bias": att["att_fc"]["bias"]}.items()}
+    torch.save(ckpt, path)
+
+
+# the lpips package's AlexNet: the index of each conv in its slice
+LPIPS_SLICES = ((1, 0), (2, 3), (3, 6), (4, 8), (5, 10))
+
+
+def write_lpips_pt(tree: dict, path: str) -> None:
+    """JAX-layout LPIPS → the `lpips` package's state dict, its scaling
+    layer's buffers included."""
+    sd = {"scaling_layer.shift": torch.tensor([-.030, -.088, -.188])
+          .reshape(1, 3, 1, 1),
+          "scaling_layer.scale": torch.tensor([.458, .448, .450])
+          .reshape(1, 3, 1, 1)}
+    for i, (s, idx) in enumerate(LPIPS_SLICES):
+        sd[f"net.slice{s}.{idx}.weight"] = torch.from_numpy(
+            _oihw(tree[f"conv{i}"]["weight"]))
+        sd[f"net.slice{s}.{idx}.bias"] = torch.from_numpy(
+            tree[f"conv{i}"]["bias"])
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = torch.from_numpy(
+            tree[f"lin{i}"]["weight"].reshape(1, -1, 1, 1))
+    torch.save(sd, path)
+
+
+# MTCNN's FC inputs: R-Net 3 x 3 x 64, O-Net 3 x 3 x 128
+MTCNN_FC = {"rnet": ("dense4", 64), "onet": ("dense5", 128)}
+
+
+def write_mtcnn_facenet(tree: dict, out_dir: str) -> list[str]:
+    """JAX-layout MTCNN → facenet-pytorch's pnet.pt / rnet.pt / onet.pt:
+    OIHW convs, PReLU slopes, each FC's columns in the (W, H, C) order of
+    its `permute(0, 3, 2, 1)` flatten."""
+    paths = []
+    heads = {"pnet": {"prob": "conv4_1", "reg": "conv4_2"},
+             "rnet": {"prob": "dense5_1", "reg": "dense5_2"},
+             "onet": {"prob": "dense6_1", "reg": "dense6_2",
+                      "lmk": "dense6_3"}}
+    for net in ("pnet", "rnet", "onet"):
+        p, sd = tree[net], {}
+        for i in range(1, 5):
+            if f"c{i}" in p:
+                sd[f"conv{i}.weight"] = _oihw(p[f"c{i}"]["weight"])
+                sd[f"conv{i}.bias"] = p[f"c{i}"]["bias"]
+                sd[f"prelu{i}.weight"] = p[f"c{i}"]["prelu"]
+        if net in MTCNN_FC:
+            name, c = MTCNN_FC[net]
+            w = p["fc"]["weight"]
+            sd[f"{name}.weight"] = np.ascontiguousarray(
+                w.reshape(len(w), 3, 3, c).transpose(0, 2, 1, 3)
+                .reshape(len(w), -1))
+            sd[f"{name}.bias"] = p["fc"]["bias"]
+            sd[f"prelu{int(name[-1])}.weight"] = p["fc"]["prelu"]
+        for head, name in heads[net].items():
+            w = p[head]["weight"]
+            sd[f"{name}.weight"] = _oihw(w) if w.ndim == 4 else w
+            sd[f"{name}.bias"] = p[head]["bias"]
+        paths.append(os.path.join(out_dir, f"{net}.pt"))
+        torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                   paths[-1])
+    return paths
+
+
+def write_mtcnn_sandberg(tree: dict, out_dir: str) -> None:
+    """JAX-layout MTCNN (for images the right way up) → Sandberg's
+    det1/det2/det3.npy, whose nets take transposed images: every kernel's
+    H and W swapped, each FC's spatial order swapped and its matrix
+    (in, out), the box pairs and landmark halves swapped; layer names in
+    the mixed case some mirrors use."""
+    swap_reg, swap_lmk = [1, 0, 3, 2], [5, 6, 7, 8, 9, 0, 1, 2, 3, 4]
+
+    def conv(p, perm=None):
+        w = np.transpose(p["weight"], (1, 0, 2, 3))
+        b = p["bias"]
+        if perm is not None:
+            w, b = w[..., perm], b[perm]
+        return {"weights": np.ascontiguousarray(w), "biases": b}
+
+    def fc(p, c=None, perm=None):
+        w = p["weight"]
+        if c is not None:
+            w = w.reshape(len(w), 3, 3, c).transpose(0, 2, 1, 3) \
+                .reshape(len(w), -1)
+        b = p["bias"]
+        if perm is not None:
+            w, b = w[perm], b[perm]
+        return {"weights": np.ascontiguousarray(w.T), "biases": b}
+
+    def prelu(p):
+        return {"alpha": p["prelu"]}
+
+    for i, net in enumerate(("pnet", "rnet", "onet"), 1):
+        p, d = tree[net], {}
+        for j in range(1, 5):
+            if f"c{j}" in p:
+                d[f"conv{j}"] = conv(p[f"c{j}"])
+                d[f"PReLU{j}"] = prelu(p[f"c{j}"])
+        if net == "pnet":
+            d["conv4-1"] = conv(p["prob"])
+            d["conv4-2"] = conv(p["reg"], swap_reg)
+        else:
+            n = 4 if net == "rnet" else 5
+            d[f"conv{n}"] = fc(p["fc"], MTCNN_FC[net][1])
+            d[f"prelu{n}"] = prelu(p["fc"])
+            d[f"conv{n + 1}-1"] = fc(p["prob"])
+            d[f"conv{n + 1}-2"] = fc(p["reg"], perm=swap_reg)
+            if net == "onet":
+                d["conv6-3"] = fc(p["lmk"], perm=swap_lmk)
+        np.save(os.path.join(out_dir, f"det{i}.npy"), d, allow_pickle=True)
+
+
+def write_facerecon_pth(tree: dict, path: str) -> None:
+    """JAX-layout face recon → Deep3DFaceRecon's checkpoint: {"net_recon":
+    torchvision ResNet-50 under `backbone.` and the heads under
+    `final_layers.`, "epoch": 20}."""
+    sd = {}
+
+    def bn(prefix, p):
+        sd.update({f"{prefix}.weight": p["scale"], f"{prefix}.bias": p["bias"],
+                   f"{prefix}.running_mean": p["mean"],
+                   f"{prefix}.running_var": p["var"]})
+        sd[f"{prefix}.num_batches_tracked"] = np.asarray(0)
+
+    sd["backbone.conv1.weight"] = _oihw(tree["stem_conv"])
+    bn("backbone.bn1", tree["stem_bn"])
+    for name, blk in tree.items():
+        m = re.fullmatch(r"s(\d+)_b(\d+)", name)
+        if m is None:
+            continue
+        pre = f"backbone.layer{int(m.group(1)) + 1}.{m.group(2)}"
+        for c in (1, 2, 3):
+            sd[f"{pre}.conv{c}.weight"] = _oihw(blk[f"conv{c}"])
+            bn(f"{pre}.bn{c}", blk[f"bn{c}"])
+        if "down_conv" in blk:
+            sd[f"{pre}.downsample.0.weight"] = _oihw(blk["down_conv"])
+            bn(f"{pre}.downsample.1", blk["down_bn"])
+    for i in range(7):
+        sd[f"final_layers.{i}.weight"] = _oihw(tree[f"head{i}"]["weight"])
+        sd[f"final_layers.{i}.bias"] = tree[f"head{i}"]["bias"]
+    torch.save({"net_recon": {k: torch.from_numpy(np.array(v))
+                              for k, v in sd.items()}, "epoch": 20}, path)
+
+
+def write_deepspeech_vars(tree: dict, path: str) -> None:
+    """JAX-layout DeepSpeech → the npz of TF 0.1.0's checkpoint variables
+    (`|`-separated names, with the optimizer's slots beside them)."""
+    out = {"global_step": np.asarray(1000, np.int64)}
+    for i, layer in ((1, "h1"), (2, "h2"), (3, "h3"), (5, "h5"),
+                     (6, "logits")):
+        out[f"h{i}"] = tree[layer]["weight"]
+        out[f"b{i}"] = tree[layer]["bias"]
+        out[f"h{i}|Adam"] = np.zeros((1,), np.float32)
+    for d in ("fw", "bw"):
+        cell = f"bidirectional_rnn|{d}|basic_lstm_cell"
+        out[f"{cell}|weights"] = tree[f"lstm_{d}"]["kernel"]
+        out[f"{cell}|biases"] = tree[f"lstm_{d}"]["bias"]
+    np.savez(path, **out)
+
+
+def random_tree(shapes: dict, rng) -> dict:
+    """Seeded float32 arrays of the given nested shapes."""
+    return {k: random_tree(v, rng) if isinstance(v, dict)
+            else rng.standard_normal(v).astype(np.float32) * 0.1
+            for k, v in shapes.items()}
+
+
+def mtcnn_shapes() -> dict:
+    """The JAX layout of the MTCNN cascade (the Caffe model's widths)."""
+    def conv(k, cin, cout, prelu=True):
+        p = {"weight": (k, k, cin, cout), "bias": (cout,)}
+        return {**p, "prelu": (cout,)} if prelu else p
+
+    def fc(cin, cout, prelu=False):
+        p = {"weight": (cout, cin), "bias": (cout,)}
+        return {**p, "prelu": (cout,)} if prelu else p
+
+    return {"pnet": {"c1": conv(3, 3, 10), "c2": conv(3, 10, 16),
+                     "c3": conv(3, 16, 32), "prob": conv(1, 32, 2, False),
+                     "reg": conv(1, 32, 4, False)},
+            "rnet": {"c1": conv(3, 3, 28), "c2": conv(3, 28, 48),
+                     "c3": conv(2, 48, 64), "fc": fc(576, 128, True),
+                     "prob": fc(128, 2), "reg": fc(128, 4)},
+            "onet": {"c1": conv(3, 3, 32), "c2": conv(3, 32, 64),
+                     "c3": conv(3, 64, 64), "c4": conv(2, 64, 128),
+                     "fc": fc(1152, 256, True), "prob": fc(256, 2),
+                     "reg": fc(256, 4), "lmk": fc(256, 10)}}
+
+
+def deepspeech_shapes() -> dict:
+    """The JAX layout of DeepSpeech 0.1.0: 494 inputs, 2048 units, 29
+    characters."""
+    def dense(cin, cout):
+        return {"weight": (cin, cout), "bias": (cout,)}
+
+    lstm = {"kernel": (4096, 8192), "bias": (8192,)}
+    return {"h1": dense(494, 2048), "h2": dense(2048, 2048),
+            "h3": dense(2048, 2048), "lstm_fw": lstm, "lstm_bw": lstm,
+            "h5": dense(4096, 2048), "logits": dense(2048, 29)}
+
+
+def trees_equal(got: dict, want: dict) -> list[str]:
+    """The keys at which two nested dicts of arrays differ (other keys,
+    shapes, dtypes or any bit)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        g, w = got[k], want[k]
+        if isinstance(w, dict) and isinstance(g, dict):
+            bad += [f"{k}/{b}" for b in trees_equal(g, w)]
+        elif isinstance(w, dict) or isinstance(g, dict) \
+                or np.asarray(g).dtype != np.asarray(w).dtype \
+                or not np.array_equal(g, w):
+            bad.append(k)
+    return bad
+
+
+# a tool's process: its seconds after torch's import and its peak memory
+TOOL_CODE = ("import resource, runpy, sys, time\n"
+             "import torch\n"
+             "t0 = time.perf_counter()\n"
+             "if len(sys.argv) > 1:\n"
+             "    sys.argv = sys.argv[1:]\n"
+             "    runpy.run_module(sys.argv[0], run_name='__main__',\n"
+             "                     alter_sys=True)\n"
+             "print('main_s', time.perf_counter() - t0)\n"
+             "print('maxrss_kib', "
+             "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss)\n")
+
+
+def run_tool(name: str | None, *argv: str) -> dict:
+    """`python -m hfa_gp_tpu_torch.tools.<name> argv` in a process of its
+    own, as a user runs it (name None: a process that only imports torch):
+    {"seconds" of the process, "main_s" of the module after torch's
+    import, "rss_gib": its peak resident memory, "said": its first line}.
+    The peak is the process's ru_maxrss. A child's maxrss starts from the
+    memory of the process it was forked from, so the tool is started
+    through a small Python process in between, not from this large one."""
+    hop = "import subprocess, sys; sys.exit(subprocess.call(sys.argv[1:]))"
+    mod = [f"hfa_gp_tpu_torch.tools.{name}", *argv] if name else []
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", hop, sys.executable, "-c",
+                        TOOL_CODE, *mod], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"[31] {name} {argv} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    lines = dict(line.split(" ", 1) for line in r.stdout.splitlines()
+                 if line.startswith(("main_s ", "maxrss_kib ")))
+    return {"seconds": seconds, "main_s": float(lines["main_s"]),
+            "rss_gib": int(lines["maxrss_kib"]) * 1024 / GIB,
+            "said": r.stdout.splitlines()[0]}
+
+
+class _Recorder:
+    """Wraps `owner.name` for the length of a `with`: every call's
+    arguments and result are kept."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.owner, self.name)
+
+        def wrapped(*a, **kw):
+            out = self.real(*a, **kw)
+            self.calls.append((a, kw, out))
+            return out
+
+        setattr(self.owner, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+def render_from_npz(what: str, cli, argv: list[str], owner, fn: str,
+                    params) -> dict:
+    """`cli.main(argv)` (which reads `--model_npz`) with `owner.fn`, its
+    render, recorded: the frames, the launches, and each batch held
+    against `params` (the tree the npz was written from, on the card)
+    rendered directly on the same inputs, both under cuDNN's
+    deterministic algorithms."""
+    reset_launches()
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _Recorder(owner, fn) as rec:
+            cli.main(cli.build_argparser().parse_args(argv))
+            launches = read_launches()
+        seconds = time.perf_counter() - t0
+        if not rec.calls:
+            fail(f"[31] {what}: the CLI rendered nothing")
+        errs = []
+        with torch.inference_mode():
+            for a, kw, out in rec.calls:
+                want = rec.real(params, *a[1:], **kw)
+                scale = max(1.0, want.abs().max().item())
+                errs.append((out - want).abs().max().item() / scale)
+                if not torch.isfinite(out).all() or out.shape != want.shape:
+                    fail(f"[31] {what}: frames {tuple(out.shape)}, finite "
+                         f"{bool(torch.isfinite(out).all())}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, kw, out = rec.calls[0]
+    with torch.inference_mode():
+        twice = [rec.real(params, *a[1:], **kw) for _ in range(2)]
+    default = (twice[0] - twice[1]).abs().max().item() \
+        / max(1.0, twice[0].abs().max().item())
+    print(f"[31] {what} --model_npz: {len(rec.calls)} batch(es) of "
+          f"{tuple(out.shape)}, {seconds:.2f} s, launches {launches}; "
+          f"against the same params rendered directly, max abs diff / "
+          f"max(1, scale) {max(errs):.3e} (bound {CONVERT_RENDER_RTOL:g}; "
+          f"one batch rendered twice with cuDNN's default algorithms: "
+          f"{default:.3e})", flush=True)
+    if not max(errs) <= CONVERT_RENDER_RTOL:
+        fail(f"[31] {what}: the render from the npz differs by {errs}")
+    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * len(rec.calls),
+                "ray_marcher": 2 * len(rec.calls)}
+    if launches != expected:
+        fail(f"[31] {what} launched {launches}, expected {expected}")
+    return launches
+
+
+def phase_converters(tmp: str) -> dict[str, int]:
+    """[31] every converter of the port on a reference-format source at
+    full width, in a process of its own as a user runs it: each npz equal
+    to the tree its source was written from, bit for bit, and loadable by
+    the module that reads it; then a batch of 8 through each reenactment
+    CLI from the converted avatar checkpoints, held against the same
+    params rendered directly. Returns the three CLIs' launches, summed."""
+    import dataclasses
+
+    from hfa_gp_tpu_torch.cli import (run_recon_video_3dmm,
+                                      run_recon_video_audio,
+                                      run_recon_video_rgb)
+    from hfa_gp_tpu_torch.models import lpips
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.preprocess import convert as pconvert
+    from hfa_gp_tpu_torch.train import audio as audio_train
+    from hfa_gp_tpu_torch.utils.convert import ParamTree, from_jax, load_npz
+    cfg = heads.AvatarConfig()
+    params = {
+        "rgb": heads.init_avatar_rgb(torch.Generator().manual_seed(SEED + 7),
+                                     dataclasses.replace(cfg, person_2=True)),
+        "3dmm": heads.init_avatar_3dmm(
+            torch.Generator().manual_seed(SEED + 8), cfg),
+        "audio": audio_train.init_audio_params(
+            torch.Generator().manual_seed(SEED + 9), cfg)}
+    trees = {k: jax_layout(p) for k, p in params.items()}
+    rng = np.random.default_rng(SEED + 10)
+    trees["eg3d"] = trees["rgb"]["generator"]
+    trees["lpips"] = jax_layout(lpips.init_lpips(
+        torch.Generator().manual_seed(SEED + 11)))
+    trees["mtcnn"] = random_tree(mtcnn_shapes(), rng)
+    recon = os.path.join(tmp, "recon_tree.npz")
+    write_recon_npz(random_recon_state(
+        torch.Generator().manual_seed(SEED + 12)), recon)
+    trees["facerecon"] = load_npz(recon)
+    trees["deepspeech"] = random_tree(deepspeech_shapes(), rng)
+
+    src = {k: os.path.join(tmp, name) for k, name in (
+        ("eg3d", "ffhqrebalanced512-128.pkl"), ("rgb", "rgb_025000.pt"),
+        ("3dmm", "3dmm_025000.pt"), ("audio", "audio_025000.pt"),
+        ("lpips", "lpips_alex.pt"), ("facerecon", "epoch_20.pth"),
+        ("deepspeech", "ds_vars.npz"), ("sandberg", "dets"))}
+    t0 = time.perf_counter()
+    write_eg3d_pickle(trees["eg3d"], src["eg3d"])
+    for head in ("rgb", "3dmm", "audio"):
+        write_avatar_pt(trees[head], head, src[head])
+    write_lpips_pt(trees["lpips"], src["lpips"])
+    facenet = write_mtcnn_facenet(trees["mtcnn"], tmp)
+    os.makedirs(src["sandberg"])
+    write_mtcnn_sandberg(trees["mtcnn"], src["sandberg"])
+    write_facerecon_pth(trees["facerecon"], src["facerecon"])
+    write_deepspeech_vars(trees["deepspeech"], src["deepspeech"])
+    print(f"[31] reference-format sources written in "
+          f"{time.perf_counter() - t0:.2f} s: " + ", ".join(
+              f"{os.path.basename(p)} {os.path.getsize(p) / 2**20:.1f} MiB"
+              for p in src.values() if os.path.isfile(p)), flush=True)
+
+    out = {k: os.path.join(tmp, f"{k}.npz") for k in (
+        "eg3d", "rgb", "3dmm", "audio", "lpips", "mtcnn", "sandberg",
+        "facerecon", "deepspeech")}
+    runs = {
+        "eg3d": ("convert_pickle", src["eg3d"], out["eg3d"]),
+        **{h: ("convert_avatar", "--ckpt", src[h], "--head", h, "--out",
+               out[h]) for h in ("rgb", "3dmm", "audio")},
+        "lpips": ("convert_lpips", src["lpips"], out["lpips"]),
+        "mtcnn": ("convert_mtcnn", "--pnet", facenet[0], "--rnet",
+                  facenet[1], "--onet", facenet[2], "--out", out["mtcnn"]),
+        "sandberg": ("convert_mtcnn", "--det_dir", src["sandberg"], "--out",
+                     out["sandberg"]),
+        "facerecon": ("convert_facerecon", src["facerecon"],
+                      out["facerecon"]),
+        "deepspeech": ("convert_deepspeech", src["deepspeech"],
+                       out["deepspeech"])}
+    base = run_tool(None)
+    print(f"[31] a process that only imports torch: {base['seconds']:.2f} "
+          f"s, peak host memory {base['rss_gib']:.3f} GiB", flush=True)
+    for key, (tool, *argv) in runs.items():
+        r = run_tool(tool, *argv)
+        want = trees["mtcnn" if key == "sandberg" else key]
+        bad = trees_equal(load_npz(out[key]), want)
+        print(f"[31] {tool} {key}: {r['seconds']:.2f} s in all, "
+              f"{r['main_s']:.2f} s after importing torch, peak host "
+              f"memory {r['rss_gib']:.3f} GiB "
+              f"({r['rss_gib'] - base['rss_gib']:+.3f} over importing "
+              f"torch), npz {os.path.getsize(out[key]) / 2**20:.1f} MiB; "
+              f"equal to its source tree bit for bit: {not bad} "
+              f"({r['said']})", flush=True)
+        if bad:
+            fail(f"[31] {key}: the converted tree differs at {bad[:5]}")
+    with open(out["rgb"] + ".args.json") as f:
+        side = json.load(f)
+    if side.get("latent_dim_style") != "512":
+        fail(f"[31] rgb.npz.args.json holds {side}")
+    # each preprocessing npz loads into the port's module (strict keys and
+    # shapes), LPIPS's into a tree of init_lpips's shapes
+    pconvert.mtcnn_from_jax(load_npz(out["mtcnn"]))
+    pconvert.mtcnn_from_jax(load_npz(out["sandberg"]))
+    pconvert.facerecon_from_jax(load_npz(out["facerecon"]))
+    pconvert.deepspeech_from_jax(load_npz(out["deepspeech"]))
+    got = {k: v.shape for k, v in from_jax(load_npz(out["lpips"]))
+           .state_dict().items()}
+    want = {k: v.shape for k, v in ParamTree(lpips.init_lpips(
+        torch.Generator().manual_seed(0))).state_dict().items()}
+    if got != want:
+        fail(f"[31] LPIPS npz shapes {got} != {want}")
+
+    write_dataset(tmp, CONVERT_BATCH)
+    write_expressions(tmp, CONVERT_BATCH, "test")
+    write_audio_dataset(tmp, 1, CONVERT_BATCH)
+    flags = ["--dataset_root", tmp, "--size", "256", "--render_batch",
+             str(CONVERT_BATCH), "--demo_dir", os.path.join(tmp, "demo"),
+             "--fps", "4", "--device", "cuda"]
+    launches = [
+        render_from_npz("run_recon_video_rgb", run_recon_video_rgb,
+                        flags + ["--person", "person_3", "--demo_name",
+                                  "rgb", "--model_npz", out["rgb"]],
+                        run_recon_video_rgb, "reenact",
+                        params["rgb"].to("cuda")),
+        render_from_npz("run_recon_video_3dmm", run_recon_video_3dmm,
+                        flags + ["--person", "person_3", "--demo_name",
+                                  "3dmm", "--model_npz", out["3dmm"]],
+                        heads, "t3dmm_forward", params["3dmm"].to("cuda")),
+        render_from_npz("run_recon_video_audio --smooth",
+                        run_recon_video_audio,
+                        flags + ["--dataset", "ad_dataset", "--person",
+                                  "obama", "--demo_name", "audio",
+                                  "--smooth", "--model_npz", out["audio"]],
+                        audio_train, "sample", params["audio"].to("cuda"))]
+    return {k: sum(n[k] for n in launches) for k in launches[0]}
+
+
+class MemoryReader:
+    """An ArrayRecord reader's interface over records held in memory."""
+
+    def __init__(self, records: list[bytes]):
+        self.records = records
+
+    def num_records(self) -> int:
+        return len(self.records)
+
+    def read(self, indices) -> list[bytes]:
+        return [self.records[i] for i in indices]
+
+
+def phase_rec_path(tmp: str, synthetic_sps: dict) -> dict[str, int]:
+    """[32] train_arcface.main --rec (iresnet50, fp32, 1,000,000 classes,
+    batch 256) on seeded-noise JPEG records: through an ArrayRecord file
+    where `array_record` imports, else through the same dataset and stream
+    over an in-memory reader; the batches that reached the card equal the
+    CPU decode bit for bit, K5 and K6 once a step, and samples/s beside
+    the synthetic-batch figures of [10] and [12]."""
+    import io
+
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.cli import train_arcface
+    from hfa_gp_tpu_torch.data import record_dataset as rd
+    from hfa_gp_tpu_torch.data.dataset import EpochSeededBatches
+    rng = np.random.default_rng(SEED + 13)
+    images, labels = [], []
+    for _ in range(REC_RECORDS):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 255, (112, 112, 3), np.uint8)) \
+            .save(buf, format="JPEG", quality=90)
+        images.append(buf.getvalue())
+        labels.append(int(rng.integers(0, 1_000_000)))
+    reader = MemoryReader([rd.encode_record(i, b)
+                           for i, b in zip(images, labels)])
+    path = os.path.join(tmp, "train.array_record")
+    try:
+        rd.write_record_dataset(path, images, labels)
+        route, opened = "an ArrayRecord file", None
+    except ImportError:
+        route, opened = "an in-memory reader (no array_record here)", reader
+    real_dataset = train_arcface.RecordFaceDataset
+    if opened is not None:
+        train_arcface.RecordFaceDataset = \
+            lambda source, size=112: real_dataset(opened, size)
+    batches = []
+    real_batches = train_arcface.record_batches
+
+    def recording(*a, **kw):
+        get = real_batches(*a, **kw)
+
+        def kept(i):
+            batches.append(get(i))
+            return batches[-1]
+        return kept
+
+    train_arcface.record_batches = recording
+    try:
+        losses, launches, seconds, peak, sps = run_arcface_cli(arc_args(
+            "--num_classes", "1000000", "--num_steps", str(REC_STEPS),
+            "--rec", path))
+    finally:
+        train_arcface.RecordFaceDataset = real_dataset
+        train_arcface.record_batches = real_batches
+    stream = EpochSeededBatches(rd.RecordFaceDataset(reader), ARC_BATCH,
+                                seed=0)
+    t0 = time.perf_counter()
+    cpu = [stream.load(i) for i in range(REC_STEPS)]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / REC_STEPS
+    equal = [torch.equal(b[0].cpu(), c[0]) and torch.equal(b[1].cpu(),
+                                                           c[1].long())
+             for b, c in zip(batches, cpu)]
+    print(f"[32] train_arcface --rec through {route}: {ARC_NET}, 1,000,000 "
+          f"classes, batch {ARC_BATCH}, {len(losses)} steps in "
+          f"{seconds:.2f} s (init and first-use costs included), losses "
+          f"{[round(x, 4) for x in losses]}, peak {peak / GIB:.3f} GiB, "
+          f"launches {launches}; {REC_RECORDS} JPEG records, host decode "
+          f"{decode_ms:.1f} ms a batch; the card's batches equal the CPU "
+          f"decode bit for bit: {equal}", flush=True)
+    print(f"[32] samples/s: --rec {sps:.1f} (the CLI's figure, steps "
+          f"2-{REC_STEPS}), "
+          f"synthetic on-device batches: [10] {synthetic_sps['cli']:.1f} "
+          f"(the CLI's figure, checkpoints and logging in its clock), [12] "
+          f"{synthetic_sps['steady']:.1f} (steady state); --rec / [12] = "
+          f"{sps / synthetic_sps['steady']:.3f}", flush=True)
+    check_arcface_losses("--rec run", losses, 1_000_000, REC_STEPS)
+    if len(equal) != REC_STEPS or not all(equal):
+        fail(f"[32] the card's batches differ from the CPU decode: {equal}")
+    expected = {**NO_LAUNCHES, "flash_ce_fwd": REC_STEPS,
+                "flash_ce_bwd": REC_STEPS}
+    if launches != expected:
+        fail(f"[32] the --rec run launched {launches}, expected {expected}")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -3398,9 +4225,9 @@ def main() -> None:
     phase_step_card_vs_cpu()
     fp32_step = phase_train_throughput()
     with tempfile.TemporaryDirectory() as tmp:
-        arcface_launches = phase_arcface_path(tmp)
+        arcface_launches, arcface_sps = phase_arcface_path(tmp)
     phase_arcface_card_vs_cpu()
-    phase_arcface_throughput()
+    arcface_steady_sps = phase_arcface_throughput()
     probe_launches = phase_probe_path()
     with tempfile.TemporaryDirectory() as tmp:
         t3dmm_launches = phase_3dmm_path(tmp)
@@ -3437,6 +4264,14 @@ def main() -> None:
     flags = phase_remat_ray_chunk(fp32_step)
     with tempfile.TemporaryDirectory() as tmp:
         phase_person_2_bf16(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        convert_launches = phase_converters(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_launches = phase_rec_path(tmp, {"cli": arcface_sps,
+                                            "steady": arcface_steady_sps})
+    print("[33] the native image loader (native/hfaio.cpp): not ported; the "
+          "card's machine has neither png.h nor jpeglib.h (ROADMAP.md §1.3)",
+          flush=True)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
@@ -3448,6 +4283,7 @@ def main() -> None:
             k["launches"] = families[24]["launches"][k["name"][:-5]]
         elif k["name"].startswith("flash_ce"):
             k["launches"] = arcface_launches[k["name"]]
+            k["launches_rec"] = rec_launches[k["name"]]
         elif k["name"] == "triplane_probe":
             k["launches"] = probe_launches[k["name"]]
         else:
@@ -3459,6 +4295,7 @@ def main() -> None:
             k["launches_remat_step"] = flags["remat_launches"][k["name"]]
             k["launches_ray_chunk_reenact"] = \
                 flags["chunk_launches"][k["name"]]
+            k["launches_converted_reenact"] = convert_launches[k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
     # what each kernel loses on a unit of each path: launches x (ms - bound)
@@ -3480,9 +4317,9 @@ def main() -> None:
             f"{n} x {gap:.4f} = {n * gap:.4f}" for n in per_unit), flush=True)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax",
-                                            "hfa_gp_tpu"))
+                                            "hfa_gp_tpu", "tools"))
     if foreign:
-        fail(f"imported JAX or the JAX package: {foreign[:5]}")
+        fail(f"imported JAX, the JAX package or its tools: {foreign[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

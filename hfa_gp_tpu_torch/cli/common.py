@@ -47,10 +47,11 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--exp_name", type=str, default="v1")
     p.add_argument("--tune_iter", type=int, default=50000)
     p.add_argument("--eg3d_weights", type=str, default=None,
-                   help="generator npz of the JAX package's "
-                        "tools/convert_pickle.py (ffhqrebalanced512-128)")
+                   help="generator npz of `python -m hfa_gp_tpu_torch."
+                        "tools.convert_pickle` (ffhqrebalanced512-128)")
     p.add_argument("--lpips_weights", type=str, default=None,
-                   help="npz of the JAX package's tools/convert_lpips.py")
+                   help="npz of `python -m hfa_gp_tpu_torch.tools."
+                        "convert_lpips`")
     p.add_argument("--out_pose", action="store_true", default=False)
     p.add_argument("--use_softmax", action="store_true", default=False)
     p.add_argument("--person_2", type=str, default=None,
@@ -168,8 +169,9 @@ def load_lpips(args, device: torch.device | str = "cpu"):
         return convert.from_jax(convert.load_npz(args.lpips_weights), device)
     print("=" * 70 + "\nWARNING: no --lpips_weights: the LPIPS loss uses "
           "RANDOM AlexNet\nfeatures (a random-projection distance, not "
-          "perceptual). Convert the\ntorch `lpips` package weights with the "
-          "JAX package's\ntools/convert_lpips.py for real runs.\n" + "=" * 70,
+          "perceptual). Convert the\ntorch `lpips` package weights with "
+          "`python -m\nhfa_gp_tpu_torch.tools.convert_lpips` for real runs."
+          "\n" + "=" * 70,
           file=sys.stderr)
     g = torch.Generator().manual_seed(LPIPS_SEED)
     return convert.ParamTree(lpips_mod.init_lpips(g)).to(device)

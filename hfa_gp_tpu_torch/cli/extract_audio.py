@@ -3,10 +3,10 @@ a 16 kHz wav → aud.npy (N, 16, 29).
 
 Replaces the reference's external AD-NeRF/DeepSpeech tooling (reference
 README.md:41; consumed at code/dataset.py:404) with the port's DeepSpeech
-0.1.0 (preprocess/deepspeech.py). `--weights` is the JAX package's flat npz
-of a converted checkpoint (tools/convert_deepspeech.py); without it the net
-runs with random weights (a loud warning; structure and contract testing
-only).
+0.1.0 (preprocess/deepspeech.py). `--weights` is the flat npz of a
+converted checkpoint (`python -m hfa_gp_tpu_torch.tools.convert_deepspeech`);
+without it the net runs with random weights (a loud warning; structure and
+contract testing only).
 
     python -m hfa_gp_tpu_torch.cli.extract_audio --wav sp.wav \
         --out datasets/obama/person_1/aud.npy --fps 25 \
@@ -72,8 +72,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--n_frames", type=int, default=None,
                    help="pin the output frame count (video-locked)")
     p.add_argument("--weights", type=str, default=None,
-                   help="converted deepspeech npz "
-                        "(tools/convert_deepspeech.py)")
+                   help="converted deepspeech npz (python -m "
+                        "hfa_gp_tpu_torch.tools.convert_deepspeech)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the network")
     return p

@@ -7,10 +7,12 @@ eg3d-pose-detection/process_test_video.py): a directory of frames →
         [--mtcnn_weights mtcnn.npz] [--recon_weights recon.npz] \
         [--use_existing_detections] [--device cuda]
 
-The weight files are the JAX package's flat npz (tools/convert_mtcnn.py,
-tools/convert_facerecon.py), carried into the port's modules by
-`preprocess.convert`; without them the networks run with random weights
-(structure and contract testing only), and the CLI says so loudly.
+The weight files are JAX-layout flat npz, as
+`python -m hfa_gp_tpu_torch.tools.convert_mtcnn` and
+`python -m hfa_gp_tpu_torch.tools.convert_facerecon` write them (the JAX
+package's converters write the same files), carried into the port's
+modules by `preprocess.convert`; without them the networks run with random
+weights (structure and contract testing only), and the CLI says so loudly.
 """
 
 from __future__ import annotations
@@ -29,8 +31,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--in_root", type=str, required=True,
                    help="directory of frames")
     p.add_argument("--out_dir", type=str, default=None)
-    p.add_argument("--mtcnn_weights", type=str, default=None)
-    p.add_argument("--recon_weights", type=str, default=None)
+    p.add_argument("--mtcnn_weights", type=str, default=None,
+                   help="npz of `python -m hfa_gp_tpu_torch.tools."
+                        "convert_mtcnn`")
+    p.add_argument("--recon_weights", type=str, default=None,
+                   help="npz of `python -m hfa_gp_tpu_torch.tools."
+                        "convert_facerecon`")
     p.add_argument("--use_existing_detections", action="store_true",
                    default=False,
                    help="skip MTCNN; read {in_root}/detections/*.txt")
@@ -53,15 +59,16 @@ def main(args) -> None:
     if mtcnn_net is None and not args.use_existing_detections:
         print("=" * 70 + "\nWARNING: no --mtcnn_weights — face detection "
               "runs with RANDOM weights.\nDetections/crops will be garbage "
-              "on real video. Convert pretrained\nweights with "
-              "tools/convert_mtcnn.py first.\n" + "=" * 70,
-              file=sys.stderr)
+              "on real video. Convert pretrained\nweights with `python -m "
+              "hfa_gp_tpu_torch.tools.convert_mtcnn` first.\n"
+              + "=" * 70, file=sys.stderr)
     if recon_net is None:
         print("=" * 70 + "\nWARNING: no --recon_weights — the 3D face "
               "reconstruction net runs with\nRANDOM weights; extracted "
               "poses will be garbage on real video. Convert\nthe "
-              "Deep3DFaceRecon epoch-20 checkpoint with "
-              "tools/convert_facerecon.py.\n" + "=" * 70, file=sys.stderr)
+              "Deep3DFaceRecon epoch-20 checkpoint with\n`python -m "
+              "hfa_gp_tpu_torch.tools.convert_facerecon`.\n" + "=" * 70,
+              file=sys.stderr)
     landmarks = None
     if args.use_existing_detections:
         landmarks = pipeline.smooth_landmarks(pipeline.load_detections(

@@ -12,8 +12,10 @@ writes `{demo_dir}/{demo_name}/%05d.png` and assembles `rec.mp4`.
 camera, flipped once by hand into the dataset's convention);
 `--cam_angle` turns every dataset camera by that many degrees of yaw.
 `--model_path` takes a checkpoint file written by the port's
-`train_3dmm`; `--model_npz` the JAX package's flat-npz params, converted
-by utils/convert.py. Without either the params are a seeded random init.
+`train_3dmm`; `--model_npz` the JAX package's flat-npz params
+(`tools/convert_avatar.py --head 3dmm` writes them from a reference .pt
+checkpoint), converted by utils/convert.py. Without either the params are
+a seeded random init.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default=None,
                    help="checkpoint file of the port's train_3dmm")
     p.add_argument("--model_npz", type=str, default=None,
-                   help="params-only npz (JAX pytree_io format)")
+                   help="params-only npz (JAX pytree_io format), e.g. "
+                        "of a reference .pt by `python -m hfa_gp_tpu_torch."
+                        "tools.convert_avatar --head 3dmm`")
     p.add_argument("--demo_name", type=str, default="demo3dmm")
     p.add_argument("--demo_dir", type=str, default="./demo")
     p.add_argument("--cat_video", action="store_true", default=False)

@@ -11,7 +11,9 @@ AudioAttNet; then Weights_3DMM → subspace → EG3D), `--render_batch`
 frames at a time, writes `{demo_dir}/{demo_name}/%05d.png` and assembles
 `rec.mp4`. `--model_path` takes a checkpoint file written by the port's
 `train_audio`; `--model_npz` the JAX package's flat-npz params of
-`{"model", "audnet", "audattnet"}`, converted by utils/convert.py.
+`{"model", "audnet", "audattnet"}` (`tools/convert_avatar.py --head
+audio` writes them from a reference .pt checkpoint), converted by
+utils/convert.py.
 Without either the params are a seeded random init.
 """
 
@@ -46,7 +48,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", type=str, default=None,
                    help="checkpoint file of the port's train_audio")
     p.add_argument("--model_npz", type=str, default=None,
-                   help="params-only npz (JAX pytree_io format)")
+                   help="params-only npz (JAX pytree_io format), e.g. "
+                        "of a reference .pt by `python -m hfa_gp_tpu_torch."
+                        "tools.convert_avatar --head audio`")
     p.add_argument("--demo_name", type=str, default="demoaudio")
     p.add_argument("--demo_dir", type=str, default="./demo")
     p.add_argument("--cat_video", action="store_true", default=False)

@@ -11,7 +11,8 @@ frames (encoder → QR subspace → EG3D synthesis → SR), writes
 takes a checkpoint file written by the port's trainer
 (`cli/train_rgb.py`, with or without a second person's subspace);
 `--model_npz` takes the JAX package's flat-npz params (utils/pytree_io.py
-format), converted by utils/convert.py. Without either the params are a
+format; `tools/convert_avatar.py` writes them from a reference .pt
+checkpoint), converted by utils/convert.py. Without either the params are a
 seeded random init. `--trace_dir` writes a `torch.profiler` trace of the
 render loop there, with the regions "encoder", "subspace" and "synthesis"
 of each batch named.
@@ -45,7 +46,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="checkpoint file of the port's train_rgb (an Orbax "
                         "directory of the JAX package raises)")
     p.add_argument("--model_npz", type=str, default=None,
-                   help="params-only npz (JAX pytree_io format)")
+                   help="params-only npz (JAX pytree_io format), e.g. "
+                        "of a reference .pt by `python -m hfa_gp_tpu_torch."
+                        "tools.convert_avatar --head rgb`")
     p.add_argument("--demo_name", type=str, default="demo")
     p.add_argument("--demo_dir", type=str, default="./demo")
     p.add_argument("--cat_video", action="store_true", default=False)

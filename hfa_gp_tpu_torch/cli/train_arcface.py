@@ -13,9 +13,14 @@ checkpointed training in one CLI, in one process on one device.
     the head's cosine products take bf16 operands (the flash-CE kernels'
     bf16 route) unless `--fp32` is given; parameters, gradients and
     optimizer state are fp32 either way;
-  * synthetic data: random 112² images and labels over `--num_classes`
-    identities, made on the device from a generator seeded by the step, so
-    a run measures the trainer and not the host link; the last line is
+  * data: with `--rec`, an ArrayRecord pack (`data/record_dataset.py`:
+    4-byte label + encoded image, PIL decode, bilinear to 112², [-1, 1]);
+    batch i is `EpochSeededBatches.load(i)`, a function of (seed, i), so a
+    resumed run reads the order the uninterrupted one would, and each host
+    batch goes to the card from pinned memory without blocking. Without
+    it, random 112² images and labels over `--num_classes` identities,
+    made on the device from a generator seeded by the step, so a run
+    measures the trainer and not the host link. The last line is
     `samples/sec: … (loss …, classes …, sample_rate …)`, with the first
     step left out of the clock;
   * `--sample_rate` below 1 trains the row-sparse PartialFC head;
@@ -33,9 +38,8 @@ checkpointed training in one CLI, in one process on one device.
     one image, `{output}/model_cost.json`.
 
 It runs on `--device cuda` (the flash-CE kernels) unless told `--device
-cpu`. Not ported, each raises `NotImplementedError`: `--rec` (the
-ArrayRecord dataset), `--n_model` above 1 (class sharding) and several
-processes.
+cpu`. Not ported, each raises `NotImplementedError`: `--n_model` above 1
+(class sharding) and several processes, with `--rec` or without.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ import time
 
 import torch
 
+from ..data.dataset import EpochSeededBatches
+from ..data.record_dataset import RecordFaceDataset
 from ..models.arcface import convert, registry
 from ..models.arcface.verification import evaluate_pairs
 from ..parallel.partial_fc import PartialFC
@@ -86,8 +92,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; CUDA runs the hand-written kernels")
     p.add_argument("--rec", type=str, default=None,
-                   help="ArrayRecord training pack (not ported: raises). "
-                        "Default: on-device synthetic benchmark data")
+                   help="ArrayRecord training pack. Default: on-device "
+                        "synthetic benchmark data")
     p.add_argument("--output", type=str, default=None,
                    help="work dir for checkpoints and logs")
     p.add_argument("--save_freq", type=int, default=0,
@@ -116,12 +122,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def check_supported(args) -> None:
     """Raise on every flag that asks for what the port does not do."""
-    if args.rec is not None:
-        raise NotImplementedError("--rec: the ArrayRecord dataset is not "
-                                  "ported")
     if args.n_model != 1:
-        raise NotImplementedError("--n_model > 1: class sharding over "
-                                  "several devices is not ported")
+        raise NotImplementedError(
+            f"--n_model > 1{' with --rec' if args.rec else ''}: class "
+            f"sharding over several devices is not ported")
     common.single_process(args)
 
 
@@ -133,6 +137,29 @@ def synth_batch(batch_size: int, num_classes: int,
     labs = torch.randint(0, num_classes, (batch_size,), generator=generator,
                          device=device)
     return imgs, labs
+
+
+def record_batches(args, device: torch.device):
+    """--rec: batch i of the pack as (images, int64 labels) on `device`;
+    a label outside [0, --num_classes) raises."""
+    stream = EpochSeededBatches(RecordFaceDataset(args.rec, size=112),
+                                args.batch_size, seed=args.seed)
+
+    def get(i: int) -> tuple[torch.Tensor, torch.Tensor]:
+        imgs, labs = stream.load(i)
+        labs = labs.long()
+        if labs.min() < 0 or labs.max() >= args.num_classes:
+            raise ValueError(f"batch {i} of {args.rec} has labels in "
+                             f"[{int(labs.min())}, {int(labs.max())}], "
+                             f"outside --num_classes {args.num_classes}")
+        if device.type == "cuda":
+            # both pinned: a copy from pageable memory waits for the
+            # stream, and the host could no longer decode batch i + 1
+            # while the card runs step i
+            imgs, labs = imgs.pin_memory(), labs.pin_memory()
+        return (imgs.to(device, non_blocking=True),
+                labs.to(device, non_blocking=True))
+    return get
 
 
 def export_backbone(args, state, out_dir: str) -> str:
@@ -158,6 +185,7 @@ def export_backbone(args, state, out_dir: str) -> str:
 def main(args) -> float:
     check_supported(args)
     device = common.device_from_args(args)
+    load_batch = record_batches(args, device) if args.rec else None
     if args.output:
         os.makedirs(os.path.abspath(args.output), exist_ok=True)
     logger = init_logging(
@@ -213,7 +241,8 @@ def main(args) -> float:
         # the batch and the step's sampling are functions of (seed, step),
         # so a resumed run continues the uninterrupted one exactly
         gen.manual_seed(args.seed * 1_000_003 + i)
-        imgs, labs = synth_batch(args.batch_size, num_classes, gen, device)
+        imgs, labs = (load_batch(i) if load_batch else
+                      synth_batch(args.batch_size, num_classes, gen, device))
         metrics = step(state, imgs, labs, gen)
         if i == start_step:
             # the first step carries first-use costs (the kernels' build,

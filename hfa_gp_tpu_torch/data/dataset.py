@@ -1,6 +1,7 @@
 """Frame readers and batching (port of `HeadData`, `HeadDataTest`,
-`HeadData3DMM`, `HeadDataAudio`, `BatchIterator` and `infinite_batches` of
-hfa_gp_tpu/data/dataset.py), as `torch.utils.data.Dataset`s.
+`HeadData3DMM`, `HeadDataAudio`, `BatchIterator`, `infinite_batches` and
+`EpochSeededBatches` of hfa_gp_tpu/data/dataset.py), as
+`torch.utils.data.Dataset`s.
 
 On-disk contract (the reference's):
   `{root}/{person}/{train|test2|test}/cropped_images/*.png` and
@@ -218,3 +219,56 @@ def infinite_batches(loader: BatchIterator) -> Iterator:
     """Epoch after epoch, for ever."""
     while True:
         yield from loader
+
+
+class EpochSeededBatches:
+    """A stateless, resumable batch stream: batch t is a function of
+    (seed, t) alone. Each epoch's permutation is numpy's
+    `default_rng([seed, epoch])` (the reference's
+    DistributedSampler.set_epoch contract), so a run checkpointed at step k
+    and restarted at `load(k)` replays the same order and reads no batch
+    twice; an epoch shorter than a batch is filled by `np.resize`. Every
+    shard sees the same global permutation and loads its own
+    batch_size / num_shards rows; one process is shard 0 of 1. The indices
+    equal the JAX package's `EpochSeededBatches` batch for batch."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 num_shards: int = 1, shard_index: int = 0,
+                 start_batch: int = 0):
+        if batch_size % num_shards or not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards} does not "
+                             f"divide a batch of {batch_size}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.start_batch = start_batch
+        self._per_epoch = max(len(dataset) // batch_size, 1)
+        self._epoch: int | None = None
+        self._order: np.ndarray | None = None
+
+    def batch_indices(self, t: int) -> np.ndarray:
+        """The dataset indices of this shard's rows of batch t."""
+        epoch, off = divmod(t, self._per_epoch)
+        if epoch != self._epoch:
+            self._order = np.random.default_rng(
+                [self.seed, epoch]).permutation(len(self.dataset))
+            self._epoch = epoch
+        bs = self.batch_size
+        idxs = self._order[off * bs:(off + 1) * bs]
+        if len(idxs) < bs:
+            idxs = np.resize(idxs, bs)
+        local = bs // self.num_shards
+        return idxs[self.shard_index * local:(self.shard_index + 1) * local]
+
+    def load(self, t: int) -> tuple[torch.Tensor, ...]:
+        """Batch t, each item's fields stacked (on the host)."""
+        items = [self.dataset[int(j)] for j in self.batch_indices(t)]
+        return tuple(torch.from_numpy(np.stack(col)) for col in zip(*items))
+
+    def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
+        t = self.start_batch
+        while True:
+            yield self.load(t)
+            t += 1

@@ -275,9 +275,9 @@ def extract_features(net: DeepSpeech, audio: np.ndarray,
 
 def load_or_init(path: str | None, device: torch.device | str = "cpu",
                  generator: torch.Generator | None = None) -> DeepSpeech:
-    """The flat npz of a converted checkpoint (JAX layout, as the JAX
-    package's `pytree_io.save_npz` writes it) when given, random weights
-    otherwise (loudly)."""
+    """The flat npz of a converted checkpoint (JAX layout, as
+    `hfa_gp_tpu_torch.tools.convert_deepspeech` writes it) when given,
+    random weights otherwise (loudly)."""
     if path:
         from ..utils.convert import load_npz
         from .convert import deepspeech_from_jax
@@ -286,6 +286,7 @@ def load_or_init(path: str | None, device: torch.device | str = "cpu",
     logging.getLogger(__name__).warning(
         "DeepSpeech weights not provided — using RANDOM weights; "
         "aud.npy content will not match AD-NeRF's. Convert the public "
-        "deepspeech-0.1.0 checkpoint with tools/convert_deepspeech.py.")
+        "deepspeech-0.1.0 checkpoint with `python -m "
+        "hfa_gp_tpu_torch.tools.convert_deepspeech`.")
     return init_deepspeech(generator if generator is not None
                            else torch.Generator().manual_seed(0), device)

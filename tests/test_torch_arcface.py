@@ -508,7 +508,7 @@ def test_checkpoint_round_trip_of_an_arcface_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--fp32", "--rec", "x.rec"), "--rec"),
+    (("--fp32", "--rec", "x.rec", "--n_model", "2"), "--rec"),
     (("--fp32", "--n_model", "2"), "--n_model"),
     (("--fp32", "--num_processes", "2"), "several processes")])
 def test_cli_refuses_what_is_not_ported(flags, match):

@@ -323,10 +323,13 @@ def test_port_imports_no_jax():
         "'models.arcface.mobilefacenet', 'models.arcface.vit', "
         "'models.arcface.norm', 'models.arcface.verification', "
         "'models.arcface.ijb', 'utils.export', 'cli.eval_verification', "
-        "'cli.eval_ijb', 'data.poses'):\n"
+        "'cli.eval_ijb', 'data.poses', 'data.record_dataset', "
+        "'tools.convert_pickle', 'tools.convert_avatar', "
+        "'tools.convert_lpips', 'tools.convert_facerecon', "
+        "'tools.convert_mtcnn', 'tools.convert_deepspeech'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'orbax', 'hfa_gp_tpu', 'tools'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     env = dict(os.environ)
