@@ -24,9 +24,12 @@ result line:
      N 2000 with its scratch buffer); the flash-CE kernels also at a batch
      above one group of rows with ragged class and depth counts, d w bit
      for bit across two launches, and the backward's ablation (a time per
-     variant), and with bf16 operands (the JAX CLI's default) at the main
-     path's shape, timed against a bound whose products run at the bf16
-     rate;
+     variant), and with bf16 operands (the JAX CLI's default, on the
+     tensor cores) at the main path's shape, se_x, tgt_raw and d w bit for
+     bit across two launches, timed against a bound whose products run at
+     the bf16 rate beside the bf16 `torch.matmul` of the bare product, and
+     on their general paths (B 300 d 128, B 384 d 510, d 72, and d 700,
+     whose backward takes the CUDA-core route);
   4. the reenactment path through its entry point, `hfa_gp_tpu_torch.cli.
      run_recon_video_rgb.main`, at full width on a 4-frame synthetic
      dataset: 4 PNGs of 512², a video, finite frames, and each forward
@@ -152,7 +155,12 @@ result line:
      the card equal to the CPU decode bit for bit, K5 and K6 once a step,
      finite losses, samples/s beside [10]'s and [12]'s synthetic figures;
  33. a line saying that the native image loader is not ported (the card's
-     machine lacks libpng's and libjpeg's headers).
+     machine lacks libpng's and libjpeg's headers);
+ 34. the port against the reference's golden seams (`tests/golden/
+     seams.npz`, `hfa_gp_tpu_torch.tools.check_golden`) on the card:
+     `ray_march` through the marcher kernel, `sample_pdf`,
+     `bilinear_resize` and `block_apply` (up=True), each within
+     `tests/test_golden.py`'s tolerance.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step (a bf16 one for the bf16
@@ -949,29 +957,47 @@ def flash_ce_bf16_entries(ne, w, lab, s: float, ct_se, ct_tgt) -> dict:
     (b, d), c = ne.shape, w.shape[0]
     se, tgt = flash_ce.flash_ce_stats(ne, w, lab, s, bf)
     se_p, tgt_p = flash_ce.flash_ce_stats_plain(ne, w, lab, s, bf)
+    se2, tgt2 = flash_ce.flash_ce_stats(ne, w, lab, s, bf)
     torch.cuda.synchronize()
     se_rel = ((se - se_p).abs() / se_p.abs().clamp_min(1e-30)).max().item()
     tgt_err = (tgt - tgt_p).abs().max().item()
     got = flash_ce.flash_ce_stats_backward(ne, w, lab, s, bf, ct_se, ct_tgt)
     want = flash_ce.flash_ce_stats_backward_plain(ne, w, lab, s, bf, ct_se,
                                                   ct_tgt)
+    again = flash_ce.flash_ce_stats_backward(ne, w, lab, s, bf, ct_se, ct_tgt)
     torch.cuda.synchronize()
     errs = [rel_err(x, y) for x, y in zip(got, want)]
     rel = max(r for _, r in errs)
+    repeat = torch.equal(se, se2) and torch.equal(tgt, tgt2) \
+        and torch.equal(got[1], again[1])
     print(f"[3] flash-CE kernels vs plain with bf16 operands, B {b}, d {d}, "
           f"C {c}: se_x max rel err {se_rel:.3e} (bound {CE_SE_RTOL:g}), "
           f"tgt_raw {tgt_err:.3e} (bound {CE_TGT_ATOL:g}); d norm_emb "
           f"{errs[0][1]:.3e}, d w {errs[1][1]:.3e} of the gradient's scale "
-          f"(bound {CE_BF16_BWD_RTOL:g})", flush=True)
+          f"(bound {CE_BF16_BWD_RTOL:g}); two launches each: se_x, tgt_raw "
+          f"and d w equal bit for bit: {repeat}, d norm_emb "
+          f"{rel_err(again[0], got[0])[1]:.3e} of its scale apart (atomics)",
+          flush=True)
     if not se_rel <= CE_SE_RTOL or not tgt_err <= CE_TGT_ATOL \
             or not rel <= CE_BF16_BWD_RTOL:
         fail(f"flash-CE kernels with bf16 operands at C {c}: se_x {se_rel}, "
              f"tgt_raw {tgt_err}, gradients {rel}")
+    if not repeat:
+        fail(f"flash-CE kernels with bf16 operands at C {c}: se_x, tgt_raw "
+             f"or d w differ between two launches")
+    del se2, tgt2, again
     ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s, bf))
     plain_ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_plain(
         ne, w, lab, s, bf))
+    # no single PyTorch call computes the statistics; for the record, the
+    # bare (B, d) x (d, C) product of the operands cast to bf16 beforehand
+    ne_bf, w_bf_t = ne.to(bf), w.to(bf).T
+    matmul_ms = cuda_time_ms(lambda: torch.matmul(ne_bf, w_bf_t))
+    del ne_bf, w_bf_t
+    print(f"    torch.matmul of the bare ({b}, {d}) x ({d}, {c}) product in "
+          f"bf16: {matmul_ms:.4f} ms", flush=True)
     out = {"fwd_bf16": kernel_entry(
-        "flash_ce_fwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce.cu",
+        "flash_ce_fwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce_bf16.cu",
         "hfa_gp_tpu/parallel/pallas_ce.py:78", tgt_err, ms, plain_ms, None,
         nbytes(ne, w, lab, se, tgt), 2.0 * c * d + 7.0 * b * c,
         2.0 * b * d * c)}
@@ -981,13 +1007,14 @@ def flash_ce_bf16_entries(ne, w, lab, s: float, ct_se, ct_tgt) -> dict:
     plain_ms = cuda_time_ms(lambda: flash_ce.flash_ce_stats_backward_plain(
         ne, w, lab, s, bf, ct_se, ct_tgt))
     out["bwd_bf16"] = kernel_entry(
-        "flash_ce_bwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce_bwd.cu",
+        "flash_ce_bwd_bf16", "hfa_gp_tpu_torch/csrc/flash_ce_bwd_bf16.cu",
         "hfa_gp_tpu/parallel/pallas_ce.py:108", max(e for e, _ in errs), ms,
         plain_ms, None, nbytes(ne, w, lab, ct_se, ct_tgt, *got),
         5.0 * c * d + 14.0 * b * c, 6.0 * b * d * c)
     out["bwd_bf16"]["max_err_over_scale"] = rel
     for e in out.values():
         e["operands"] = "bf16"
+        e["matmul_ms"] = matmul_ms
     return out
 
 
@@ -995,15 +1022,20 @@ def phase_flash_ce_general_paths(dev: torch.device, g) -> None:
     """K5 and K6 where the fast path does not reach: more batch rows than a
     block holds at once (384 > 256), a ragged last class tile, a depth that
     is no multiple of 4 (scalar copies) and one that is no multiple of the
-    slice depth, and bf16 operands."""
+    slice depth; with bf16 operands the same, a depth that is no multiple
+    of 16 (the tensor cores' step, zero-filled) and one above 512, whose
+    backward takes the CUDA-core route. se_x, tgt_raw and d w equal bit for
+    bit in two launches."""
     from hfa_gp_tpu_torch.core.kernels import flash_ce
-    s = 64.0
+    s, bf = 64.0, torch.bfloat16
     for b, d, c, mm in ((384, 512, 300_001, None), (384, 510, 30_001, None),
-                        (8, 72, 1_000, None), (300, 128, 10_007,
-                                               torch.bfloat16)):
+                        (8, 72, 1_000, None), (300, 128, 10_007, bf),
+                        (384, 510, 30_001, bf), (8, 72, 1_000, bf),
+                        (40, 700, 501, bf)):
         ne, w, lab = ce_inputs(dev, g, b, d, c)
         se, tgt = flash_ce.flash_ce_stats(ne, w, lab, s, mm)
         se_p, tgt_p = flash_ce.flash_ce_stats_plain(ne, w, lab, s, mm)
+        se2, tgt2 = flash_ce.flash_ce_stats(ne, w, lab, s, mm)
         ct_se = (torch.randn((b,), generator=g).to(dev) / se_p).contiguous()
         ct_tgt = torch.randn((b,), generator=g).to(dev)
         got = flash_ce.flash_ce_stats_backward(ne, w, lab, s, mm, ct_se,
@@ -1016,19 +1048,23 @@ def phase_flash_ce_general_paths(dev: torch.device, g) -> None:
         se_rel = ((se - se_p).abs() / se_p.abs().clamp_min(1e-30)).max().item()
         tgt_err = (tgt - tgt_p).abs().max().item()
         rel = max(rel_err(x, y)[1] for x, y in zip(got, want))
+        # d w from both routes; se_x and tgt_raw too with bf16 operands
+        repeat = torch.equal(got[1], again[1]) and (mm is None or (
+            torch.equal(se, se2) and torch.equal(tgt, tgt2)))
         # bf16 operands: the plain version rounds the same operands but sums
         # the gradient products of rounded draw in another order
         bound_ = BWD_RTOL if mm is None else CE_BF16_BWD_RTOL
         print(f"[3] flash-CE kernels vs plain, B {b}, d {d}, C {c}, operands "
               f"{'fp32' if mm is None else 'bf16'}: se_x {se_rel:.3e}, "
               f"tgt_raw {tgt_err:.3e}, gradients {rel:.3e} of their scale "
-              f"(bound {bound_:g}); d w equal in two launches: "
-              f"{torch.equal(got[1], again[1])}", flush=True)
+              f"(bound {bound_:g}); equal in two launches: {repeat}",
+              flush=True)
         if not se_rel <= CE_SE_RTOL or not tgt_err <= CE_TGT_ATOL \
-                or not rel <= bound_ or not torch.equal(got[1], again[1]):
-            fail(f"flash-CE kernels at B {b}, d {d}, C {c}: se_x {se_rel}, "
-                 f"tgt_raw {tgt_err}, gradients {rel}")
-        del ne, w, lab, got, again, want
+                or not rel <= bound_ or not repeat:
+            fail(f"flash-CE kernels at B {b}, d {d}, C {c}, "
+                 f"{'fp32' if mm is None else 'bf16'}: se_x {se_rel}, "
+                 f"tgt_raw {tgt_err}, gradients {rel}, repeat {repeat}")
+        del ne, w, lab, got, again, want, se2, tgt2
     torch.cuda.empty_cache()
 
 
@@ -4202,6 +4238,26 @@ def phase_rec_path(tmp: str, synthetic_sps: dict) -> dict[str, int]:
     return launches
 
 
+def phase_golden() -> None:
+    """[34]: the reference's golden seams on the card, the marcher through
+    its kernel (the card's machine has no JAX: these fixtures are the one
+    reference there besides the plain versions)."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch
+    from hfa_gp_tpu_torch.tools import check_golden
+    n0 = raymarch.LAUNCHES
+    rows = check_golden.check("cuda")
+    torch.cuda.synchronize()
+    for name, err, excess, ok in rows:
+        print(f"[34] golden {name}: max abs err {err:.3e}, worst excess over "
+              f"the tolerance {excess:.3e}", flush=True)
+    if not all(ok for *_, ok in rows):
+        fail(f"the port misses the golden seams: "
+             f"{[r[0] for r in rows if not r[-1]]}")
+    if raymarch.LAUNCHES - n0 != 1:
+        fail(f"the golden ray_march launched the marcher "
+             f"{raymarch.LAUNCHES - n0} times, not once")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
@@ -4272,6 +4328,7 @@ def main() -> None:
     print("[33] the native image loader (native/hfaio.cpp): not ported; the "
           "card's machine has neither png.h nor jpeglib.h (ROADMAP.md §1.3)",
           flush=True)
+    phase_golden()
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the

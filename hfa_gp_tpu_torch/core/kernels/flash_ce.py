@@ -5,8 +5,11 @@ Replaces the TPU kernels of `hfa_gp_tpu/parallel/pallas_ce.py`:
 `_fwd_kernel` (via `_stats_fwd`) by `csrc/flash_ce.cu` and `_bwd_kernel`
 (via `_stats_bwd`) by `csrc/flash_ce_bwd.cu` (the kernel itself is the
 template of `csrc/flash_ce_bwd.cuh`, which `csrc/flash_ce_bwd_probe.cu`
-instantiates with parts removed). Each source's header says what bounds it
-on the H100 and how the design answers that.
+instantiates with parts removed). With bf16 operands the same entry points
+launch the tensor-core kernels of `csrc/flash_ce_bf16.cu` and
+`csrc/flash_ce_bwd_bf16.cu` (design in `csrc/flash_ce_bf16.cuh`; the
+backward above d 512 keeps the CUDA-core template). Each source's header
+says what bounds it on the H100 and how the design answers that.
 
     se_x[b]    = Σ_{j ≠ lab[b]} exp(s·clip(cos_bj, ±1) − s)
     tgt_raw[b] = clip(cos_{b, lab[b]}), 0 where lab[b] is outside [0, C)
@@ -35,6 +38,10 @@ LAUNCHES = 0
 LAUNCHES_BWD = 0
 
 CLASS_TILE = 128   # classes per block: TILE_C of csrc/flash_ce_common.cuh
+# the bf16 route's copy of the embeddings: rows padded to a batch group,
+# columns to a warp tile (csrc/flash_ce_bf16.cuh); its backward runs up to
+# d 512 (tc::BWD_MAX_D of csrc/flash_ce_common.cuh)
+BF16_ROWS, BF16_DEPTH, BF16_BWD_MAX_D = 256, 64, 512
 
 
 def _round_operand(x: torch.Tensor, mm_dtype) -> torch.Tensor:
@@ -111,6 +118,20 @@ def transposed_scratch(norm_emb: torch.Tensor) -> torch.Tensor:
                        device=norm_emb.device)
 
 
+def scratch(norm_emb: torch.Tensor, flag: int, backward: bool
+            ) -> torch.Tensor:
+    """Scratch for the kernels' copy of the embeddings. fp32 operands (flag
+    0), and a backward with bf16 operands above d 512: the transposed copy.
+    bf16 operands otherwise: the rows rounded to bf16, (B rounded up to
+    256, d rounded up to 64)."""
+    b, d = norm_emb.shape
+    if not flag or (backward and d > BF16_BWD_MAX_D):
+        return transposed_scratch(norm_emb)
+    return torch.empty((-(-b // BF16_ROWS) * BF16_ROWS,
+                        -(-d // BF16_DEPTH) * BF16_DEPTH),
+                       dtype=torch.bfloat16, device=norm_emb.device)
+
+
 def _launch_forward(norm_emb, w, local_lab, s: float, mm_dtype):
     flag = _mm_flag(mm_dtype)
     _check_cuda_inputs("flash_ce_stats", norm_emb, w, local_lab, {})
@@ -124,7 +145,7 @@ def _launch_forward(norm_emb, w, local_lab, s: float, mm_dtype):
     with torch.cuda.device(dev):
         err = lib.hfa_flash_ce_fwd(
             norm_emb.data_ptr(), w.data_ptr(), local_lab.data_ptr(),
-            partial.data_ptr(), transposed_scratch(norm_emb).data_ptr(),
+            partial.data_ptr(), scratch(norm_emb, flag, False).data_ptr(),
             se_x.data_ptr(), tgt_raw.data_ptr(), b, d, c, float(s), flag,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_flash_ce_fwd")
@@ -161,7 +182,7 @@ def flash_ce_stats_backward(norm_emb, w, local_lab, s: float, mm_dtype,
         err = lib.hfa_flash_ce_bwd(
             norm_emb.data_ptr(), w.data_ptr(), local_lab.data_ptr(),
             ct_se.data_ptr(), ct_tgt.data_ptr(), dw.data_ptr(),
-            dne.data_ptr(), transposed_scratch(norm_emb).data_ptr(), b, d, c,
+            dne.data_ptr(), scratch(norm_emb, flag, True).data_ptr(), b, d, c,
             float(s), flag,
             torch.cuda.current_stream().cuda_stream)
     build.check(err, "hfa_flash_ce_bwd")

@@ -23,6 +23,8 @@
 // that no slice is transposed on its way) with the norm, clip, exp and row
 // sum fused into its epilogue.
 // Blocks of neighbouring batch groups share a class tile, which L2 serves.
+// With bf16 operands the entry point launches the tensor-core kernel of
+// flash_ce_bf16.cu instead; this kernel is the fp32-operand route.
 //
 // Classes run in parallel blocks, so the sum over class tiles is finished by
 // a second small kernel from per-tile partial sums, in a fixed order: se_x
@@ -40,7 +42,6 @@ using namespace hfa_ce;
 // the ring, 1 / |w| per class, the labels of the batch group
 constexpr int FWD_SMEM_BYTES = (NST_RAW * RAW_STAGE + TILE_C + TILE_B) * 4;
 
-template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_ce_fwd_kernel(const float* __restrict__ ne_t,
                     const float* __restrict__ w, const int* __restrict__ lab,
@@ -61,7 +62,7 @@ flash_ce_fwd_kernel(const float* __restrict__ ne_t,
     lab_s[r] = (b0 + r < B) ? lab[b0 + r] : -1;
 
   float acc[TM][TN];
-  raw_tile<BF16>(w, ne_t, C, B, d, c0, b0, vec != 0, ring, inv_s, acc);
+  raw_tile<false>(w, ne_t, C, B, d, c0, b0, vec != 0, ring, inv_s, acc);
 
   // epilogue: rows of acc are classes, columns batch rows
   float se[TN];
@@ -119,16 +120,15 @@ __global__ void flash_ce_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <bool BF16>
 cudaError_t launch_fwd(const float* ne_t, const float* w, const int* lab,
                        float* partial, float* tgt_raw, int B, int d,
                        int64_t C, int64_t n_ctiles, int n_bgroups, float s,
                        cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_ce_fwd_kernel<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_ce_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       FWD_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  flash_ce_fwd_kernel<BF16>
+  flash_ce_fwd_kernel
       <<<(unsigned)(n_ctiles * n_bgroups), THREADS, FWD_SMEM_BYTES, st>>>(
           ne_t, w, lab, partial, tgt_raw, B, d, C, n_bgroups, s, d % 4 == 0);
   return cudaGetLastError();
@@ -136,9 +136,12 @@ cudaError_t launch_fwd(const float* ne_t, const float* w, const int* lab,
 
 }  // namespace
 
-// partial: scratch of ceil(C / 128) * B floats; ne_t: scratch of
-// d * ceil(B / 4) * 4 floats (the embeddings, transposed and padded).
-// tgt_raw must be zeroed by the caller; se_x is written in full.
+// partial: scratch of ceil(C / 128) * B floats; ne_t: scratch of the
+// embeddings' copy, d * ceil(B / 4) * 4 floats (transposed and padded) for
+// fp32 operands, ceil(B / 256) * 256 * ceil(d / 64) * 64 bf16 (rounded and
+// padded) for bf16 operands, which take the tensor-core kernel of
+// flash_ce_bf16.cu. tgt_raw must be zeroed by the caller; se_x is written
+// in full.
 extern "C" int hfa_flash_ce_fwd(const void* ne, const void* w,
                                 const void* lab, void* partial, void* ne_t,
                                 void* se_x, void* tgt_raw, int B, int d,
@@ -148,17 +151,18 @@ extern "C" int hfa_flash_ce_fwd(const void* ne, const void* w,
   const int n_bgroups = (B + TILE_B - 1) / TILE_B;
   if (n_ctiles * n_bgroups > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      transpose_embeddings((const float*)ne, (float*)ne_t, B, d, st);
-  if (err != cudaSuccess) return (int)err;
-  err = bf16 ? launch_fwd<true>((const float*)ne_t, (const float*)w,
-                              (const int*)lab, (float*)partial,
-                              (float*)tgt_raw, B, d, C, n_ctiles, n_bgroups,
-                              s, st)
-             : launch_fwd<false>((const float*)ne_t, (const float*)w,
-                               (const int*)lab, (float*)partial,
-                               (float*)tgt_raw, B, d, C, n_ctiles, n_bgroups,
-                               s, st);
+  cudaError_t err;
+  if (bf16) {
+    err = tc::launch_fwd((const float*)ne, (const float*)w, (const int*)lab,
+                         (float*)partial, ne_t, (float*)tgt_raw, B, d, C,
+                         n_ctiles, s, st);
+  } else {
+    err = transpose_embeddings((const float*)ne, (float*)ne_t, B, d, st);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_fwd((const float*)ne_t, (const float*)w, (const int*)lab,
+                     (float*)partial, (float*)tgt_raw, B, d, C, n_ctiles,
+                     n_bgroups, s, st);
+  }
   if (err != cudaSuccess) return (int)err;
   flash_ce_reduce_kernel<<<(unsigned)((B + 31) / 32), dim3(32, 32), 0, st>>>(
       (const float*)partial, (float*)se_x, B, n_ctiles);

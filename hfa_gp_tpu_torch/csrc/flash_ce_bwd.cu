@@ -48,17 +48,28 @@
 //
 // With bf16 set, ne, w and draw are rounded to bfloat16 as operands of the
 // products; norms, dl, the sum dl * raw and dW's second term stay fp32.
+// Those products run on the tensor cores (flash_ce_bwd_bf16.cu) up to d
+// 512; above, this kernel rounds each operand as it reads it.
 
 #include "flash_ce_bwd.cuh"
 
 // dne must be zeroed by the caller; dw is written in full; ne_t is scratch
-// of d * ceil(B / 4) * 4 floats (the embeddings, transposed and padded).
+// of d * ceil(B / 4) * 4 floats (the embeddings, transposed and padded),
+// and for bf16 operands at d <= 512, which take the tensor-core kernel of
+// flash_ce_bwd_bf16.cu, of ceil(B / 256) * 256 * ceil(d / 64) * 64 bf16
+// (rounded and padded).
 extern "C" int hfa_flash_ce_bwd(const void* ne, const void* w,
                                 const void* lab, const void* ct_se,
                                 const void* ct_tgt, void* dw, void* dne,
                                 void* ne_t, int B, int d, int64_t C, float s,
                                 int bf16, void* stream) {
-  if (bf16)
+  if (B <= 0 || C <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (bf16 && d <= hfa_ce::tc::BWD_MAX_D)
+    return hfa_ce::tc::launch_bwd(
+        (const float*)ne, (const float*)w, (const int*)lab,
+        (const float*)ct_se, (const float*)ct_tgt, (float*)dw, (float*)dne,
+        ne_t, B, d, C, s, (cudaStream_t)stream);
+  if (bf16)          // the class tile does not fit: the CUDA-core route
     return hfa_ce::launch_flash_ce_bwd<true, 0>(
         ne, w, lab, ct_se, ct_tgt, dw, dne, ne_t, B, d, C, s, stream);
   return hfa_ce::launch_flash_ce_bwd<false, 0>(

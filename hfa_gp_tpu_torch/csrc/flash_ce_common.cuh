@@ -42,7 +42,10 @@
 // With `BF16` set the operands of a product are rounded to bfloat16 as they
 // are read from shared memory and accumulated in fp32: the arithmetic of a
 // bf16 matrix product with an fp32 accumulator. Row norms always come from
-// the fp32 values.
+// the fp32 values. bf16 operands take the tensor-core kernels of
+// flash_ce_bf16.cuh instead; only a backward with d > tc::BWD_MAX_D, whose
+// class tile does not fit their shared memory, still runs this template
+// with `BF16` set.
 
 #pragma once
 
@@ -352,5 +355,21 @@ __device__ __forceinline__ void raw_tile(
   }
   __syncthreads();
 }
+
+// ---- the tensor-core route for bf16 operands --------------------------------
+// flash_ce_bf16.cu and flash_ce_bwd_bf16.cu (design in flash_ce_bf16.cuh).
+// `scratch` holds the embeddings rounded to bf16, padded to a multiple of
+// 256 rows and 64 columns. Each returns a cudaError_t.
+namespace tc {
+constexpr int BWD_MAX_D = 512;   // the backward's class tile fits up to here
+cudaError_t launch_fwd(const float* ne, const float* w, const int* lab,
+                       float* partial, void* scratch, float* tgt_raw, int B,
+                       int d, int64_t C, int64_t n_ctiles, float s,
+                       cudaStream_t st);
+int launch_bwd(const float* ne, const float* w, const int* lab,
+               const float* ct_se, const float* ct_tgt, float* dw,
+               float* dne, void* scratch, int B, int d, int64_t C, float s,
+               cudaStream_t st);
+}  // namespace tc
 
 }  // namespace hfa_ce

@@ -16,10 +16,15 @@ median of 20):
     backward, under rgb's cotangent alone and under all three) at N 48
     and 96, K5 and K6 (the flash-CE statistics) at C 1,000,000 and
     300,000;
+  * K5 and K6 with bf16 operands at C 1,000,000;
   * `chip_smoke.py`'s phases [6] (reenactment frames/s at batch 8) and
     [12] (arcface samples/s, dense and row-sparse), as they print
     themselves, and [9] (RGB fitting steps/s at batch 2) over 40 steps
-    instead of its 5, because that step's time is the host's.
+    instead of its 5, because that step's time is the host's;
+  * the bf16 arcface cells of [24] (iresnet50, 1M dense) and [23] (vit_t,
+    AdamW, 2M x 0.3): the checkout's own `tools/profile_arcface.py
+    --dtype bf16`, its stages, whole step, samples/s and the flash-CE
+    kernels' share of device time.
 To compare a commit with its parent, unpack the parent with `git archive`
 into a directory that `.gitignore` lists (`_chip/parent`).
 """
@@ -99,16 +104,38 @@ def worker() -> None:
         se, _ = flash_ce.flash_ce_stats(ne, w, lab, s)
         ct_se = (torch.randn((b,), generator=g).to(dev) / se).contiguous()
         ct_tgt = torch.randn((b,), generator=g).to(dev)
-        k5 = measure.device_ms(lambda: flash_ce.flash_ce_stats(ne, w, lab, s))
-        k6 = measure.device_ms(lambda: flash_ce.flash_ce_stats_backward(
-            ne, w, lab, s, None, ct_se, ct_tgt))
-        print(f"K5 flash-CE forward, C {c}: {k5:.4f} ms; K6 flash-CE "
-              f"backward: {k6:.4f} ms", flush=True)
+        for mm in (None, torch.bfloat16) if c == 1_000_000 else (None,):
+            k5 = measure.device_ms(lambda: flash_ce.flash_ce_stats(
+                ne, w, lab, s, mm))
+            k6 = measure.device_ms(lambda: flash_ce.flash_ce_stats_backward(
+                ne, w, lab, s, mm, ct_se, ct_tgt))
+            print(f"K5 flash-CE forward, C {c}"
+                  f"{'' if mm is None else ', bf16 operands'}: {k5:.4f} ms; "
+                  f"K6 flash-CE backward: {k6:.4f} ms", flush=True)
         del ne, w, lab
     torch.cuda.empty_cache()
     cs.phase_throughput()
     rgb_steps(cs)
     cs.phase_arcface_throughput()
+    # the bf16 arcface cells of [23] and [24] as the checkout's own
+    # profile_arcface times a step
+    for flags in BF16_ARCFACE:
+        out = subprocess.run(
+            [sys.executable, "-m", "hfa_gp_tpu_torch.tools.profile_arcface",
+             "--dtype", "bf16", *flags], capture_output=True, text=True,
+            check=True).stdout
+        for line in out.splitlines():
+            if line.startswith(("stages of", "whole step", "  ours:",
+                                "device busy")) or "% of" in line \
+                    or "hand-written kernels" in line:
+                print(f"[bf16 {' '.join(flags) or 'iresnet50'}] {line}",
+                      flush=True)
+
+
+# profile_arcface flags of the bf16 cells: iresnet50 at 1M dense ([24],
+# the JAX CLI's default), vit_t AdamW at 2M x 0.3 ([23])
+BF16_ARCFACE = ([], ["--network", "vit_t", "--optimizer", "adamw",
+                     "--num_classes", "2000000", "--sample_rate", "0.3"])
 
 
 def rgb_steps(cs, iters: int = 40, warmup: int = 3) -> None:

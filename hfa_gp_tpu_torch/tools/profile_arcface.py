@@ -45,7 +45,9 @@ from .profile_train import device_report
 
 SEED = 0
 OUR_KERNELS = ("flash_ce_fwd_kernel", "flash_ce_reduce_kernel",
-               "flash_ce_bwd_kernel")
+               "flash_ce_bwd_kernel", "flash_ce_fwd_bf16_kernel",
+               "flash_ce_bwd_bf16_kernel", "transpose_embeddings_kernel",
+               "round_embeddings_kernel")
 
 
 # variants of csrc/flash_ce_bwd_probe.cu, by their number there

@@ -35,6 +35,7 @@ from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
 from hfa_gp_tpu_torch.train import arcface as arc
 from hfa_gp_tpu_torch.train import checkpoint as ckpt
 from hfa_gp_tpu_torch.utils import observability
+from tests.test_torch_networks import drop_outputs
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -474,6 +475,7 @@ def test_cli_resume_continues_bit_for_bit(tmp_path, capsys, extra):
                                torch.as_tensor(sb[k][n])) for n in sa[k])
     assert not torch.equal(a["batch_stats"]["stem_bn.mean"],
                            torch.zeros(64))
+    drop_outputs(tmp_path)
 
 
 def test_checkpoint_round_trip_of_an_arcface_state(tmp_path):
@@ -505,6 +507,7 @@ def test_checkpoint_round_trip_of_an_arcface_state(tmp_path):
     lb = step(fresh, x, torch.tensor([1, 2]),
               torch.Generator().manual_seed(5))["loss"]
     assert torch.equal(la, lb)
+    drop_outputs(tmp_path)
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -45,6 +45,7 @@ from hfa_gp_tpu_torch.utils import convert as tree_io
 from hfa_gp_tpu_torch.utils import export
 from hfa_gp_tpu_torch.utils.observability import LOGGER_NAME
 from tests.test_ijb import _make_fixture
+from tests.test_torch_networks import drop_outputs
 
 # One intra-op thread, as the other test_torch_*.py files.
 torch.set_num_threads(1)
@@ -371,3 +372,4 @@ def test_train_val_bin_and_export(tmp_path, caplog):
                         torch.zeros((1, 112, 112, 3)))
     assert cost == want and cost["flops"] > 5e8
     assert ckpt.latest_step(os.path.join(out, "checkpoint")) == 2
+    drop_outputs(tmp_path)

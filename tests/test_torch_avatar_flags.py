@@ -37,7 +37,7 @@ from hfa_gp_tpu_torch.utils import convert
 from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
 from tests.test_poses import _random_poses
-from tests.test_torch_networks import torch_small_config
+from tests.test_torch_networks import drop_outputs, torch_small_config
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -212,6 +212,7 @@ def test_adam_leaves_subspace_2_alone_and_checkpoints_keep_it(tmp_path):
     loaded = ckpt.load_params(path)
     torch.testing.assert_close(loaded["subspace_2"]["bases"],
                                before["subspace_2.bases"], rtol=0, atol=0)
+    drop_outputs(tmp_path)
 
 
 # -- the entry points ----------------------------------------------------------
@@ -295,6 +296,7 @@ def test_train_rgb_person_2_init_then_reenact(small_cli_config, dataset_root,
     pngs = sorted(glob.glob(os.path.join(demo, "t", "*.png")))
     assert len(pngs) == 4
     assert {Image.open(p).size for p in pngs} == {(64, 64)}
+    drop_outputs(tmp_path)
 
 
 def test_run_recon_video_rgb_trace_dir_writes_a_trace(small_cli_config,

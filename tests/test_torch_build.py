@@ -100,7 +100,9 @@ def test_the_flash_ce_wrapper_knows_the_kernels_class_tile():
 
 @pytest.mark.parametrize("b,d,c,mm", [(384, 510, 3001, None),
                                       (8, 72, 1000, None),
-                                      (300, 128, 1007, torch.bfloat16)])
+                                      (300, 128, 1007, torch.bfloat16),
+                                      (384, 510, 3001, torch.bfloat16),
+                                      (8, 72, 1000, torch.bfloat16)])
 def test_flash_ce_wrappers_on_cpu_give_the_plain_versions(b, d, c, mm):
     rng = np.random.default_rng(b + d + c)
     ne = rng.standard_normal((b, d)).astype(np.float32)
@@ -125,6 +127,43 @@ def test_flash_ce_wrappers_on_cpu_give_the_plain_versions(b, d, c, mm):
     assert (flash_ce.LAUNCHES, flash_ce.LAUNCHES_BWD) == (n0, n1)
     scratch = flash_ce.transposed_scratch(ne)
     assert scratch.shape == (d, -(-b // 4) * 4)
+
+
+@pytest.mark.parametrize("b,d", [(256, 512), (384, 510), (8, 72), (5, 7),
+                                 (40, 700)])
+def test_flash_ce_scratch_fits_each_route(b, d):
+    """fp32 operands: the transposed copy (d, B rounded up to 4). bf16: the
+    rounded copy, B rounded up to a group of 256 rows and d to a warp
+    tile's 64 columns (csrc/flash_ce_bf16.cuh), for the forward at any d
+    and the backward up to d 512; above, the backward's CUDA-core route
+    takes the transposed copy."""
+    ne = torch.zeros((b, d))
+    assert flash_ce.scratch(ne, 0, False).shape == (d, -(-b // 4) * 4)
+    assert flash_ce.scratch(ne, 0, True).shape == (d, -(-b // 4) * 4)
+    rounded = (-(-b // 256) * 256, -(-d // 64) * 64)
+    fwd = flash_ce.scratch(ne, 1, False)
+    assert fwd.shape == rounded and fwd.dtype == torch.bfloat16
+    bwd = flash_ce.scratch(ne, 1, True)
+    if d <= flash_ce.BF16_BWD_MAX_D:
+        assert bwd.shape == rounded and bwd.dtype == torch.bfloat16
+    else:
+        assert bwd.shape == (d, -(-b // 4) * 4) and bwd.dtype == torch.float32
+
+
+def test_flash_ce_constants_match_the_sources():
+    """The wrapper's sizes of the bf16 route are the CUDA sources'."""
+    with open(os.path.join(build.CSRC_DIR, "flash_ce_bf16.cuh")) as f:
+        cuh = f.read()
+    with open(os.path.join(build.CSRC_DIR, "flash_ce_common.cuh")) as f:
+        common = f.read()
+    assert re.search(r"constexpr int DP_ALIGN = (\d+);", cuh).group(1) == \
+        str(flash_ce.BF16_DEPTH)
+    assert re.search(r"constexpr int TILE_B = (\d+);", common).group(1) == \
+        str(flash_ce.BF16_ROWS)
+    assert re.search(r"constexpr int BWD_MAX_D = (\d+);", common).group(1) \
+        == str(flash_ce.BF16_BWD_MAX_D)
+    assert re.search(r"constexpr int TILE_C = (\d+);", common).group(1) == \
+        str(flash_ce.CLASS_TILE)
 
 
 def _edge_planes_and_points(c: int, h: int = 16, w: int = 16, m: int = 512):

@@ -47,7 +47,7 @@ from hfa_gp_tpu_torch.tools import (convert_avatar, convert_deepspeech,
 from hfa_gp_tpu_torch.utils import convert
 from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
-from tests.test_torch_networks import torch_small_avatar
+from tests.test_torch_networks import drop_outputs, torch_small_avatar
 from tools import convert_avatar as jtool_avatar
 from tools import convert_deepspeech as jtool_deepspeech
 from tools import convert_facerecon as jtool_facerecon
@@ -147,6 +147,7 @@ def test_convert_pickle_matches_the_jax_tool_on_a_state_dict_pickle(
     assert np.array_equal(sd["backbone.synthesis.b4.const"].numpy(),
                           eg3d_tree["backbone"]["b4"]["const"]
                           .transpose(2, 0, 1))
+    drop_outputs(tmp_path)
 
 
 def test_convert_pickle_reads_nvidias_persistent_modules(eg3d_tree,
@@ -167,6 +168,7 @@ def test_convert_pickle_reads_nvidias_persistent_modules(eg3d_tree,
     with pytest.raises(KeyError):
         jtool_pickle.convert_generator(jtool_pickle._state_dict(
             jtool_pickle.load_pickle_states(path)["G_ema"]))
+    drop_outputs(tmp_path)
 
 
 # -- avatar checkpoints -------------------------------------------------------
@@ -204,6 +206,7 @@ def test_convert_avatar_matches_the_jax_tool(head, tmp_path, monkeypatch,
     assert side["latent_dim_style"] == "512"
     if head == "rgb":
         assert "subspace_2" in convert.load_npz(port)
+    drop_outputs(tmp_path)
 
 
 @pytest.mark.parametrize("written,asked,match", [
@@ -222,6 +225,7 @@ def test_convert_avatar_refuses_another_head(written, asked, match,
                       str(tmp_path / "jax.npz")])
     assert str(port.value) == str(jax_tool.value)
     assert not os.path.exists(tmp_path / "port.npz")
+    drop_outputs(tmp_path)
 
 
 @pytest.fixture
@@ -286,6 +290,7 @@ def test_rgb_checkpoint_renders_through_the_port_as_jax_renders_it(
         .astype(np.int16)
     assert got8.shape == (4, 64, 64, 3)
     assert np.abs(got8 - want8).max() <= 1
+    drop_outputs(tmp_path)
 
 
 # -- the preprocessing nets and LPIPS -----------------------------------------
@@ -299,6 +304,7 @@ def test_convert_lpips_matches_the_jax_tool(tmp_path):
     jtool_lpips.main(src, str(tmp_path / "jax.npz"))
     assert_same_npz(tmp_path / "port.npz", tmp_path / "jax.npz")
     assert_tree_is(convert.load_npz(str(tmp_path / "port.npz")), tree)
+    drop_outputs(tmp_path)
 
 
 def test_convert_lpips_auto_names_the_missing_package(tmp_path, monkeypatch):
@@ -315,6 +321,7 @@ def test_convert_facerecon_matches_the_jax_tool(tmp_path):
     jtool_facerecon.main(src, str(tmp_path / "jax.npz"))
     assert_same_npz(tmp_path / "port.npz", tmp_path / "jax.npz")
     assert_tree_is(convert.load_npz(str(tmp_path / "port.npz")), tree)
+    drop_outputs(tmp_path)
 
 
 @pytest.mark.parametrize("layout", ["facenet", "sandberg",
@@ -362,6 +369,7 @@ def test_convert_deepspeech_matches_the_jax_tool(deepspeech_tree, tmp_path):
             [f"{layer}/{part}" for layer, part in (
                 convert_deepspeech.NAME_MAP[k] for k in f.files
                 if k in convert_deepspeech.NAME_MAP)]
+    drop_outputs(tmp_path)
 
 
 def test_convert_deepspeech_checks_layers_and_shapes(deepspeech_tree):
@@ -403,6 +411,7 @@ def test_extract_audio_reads_the_converted_deepspeech(tmp_path):
     assert got.shape == (12, 16, 29)
     scale = max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+    drop_outputs(tmp_path)
 
 
 # -- without JAX --------------------------------------------------------------
@@ -450,3 +459,4 @@ print("ok")
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().splitlines()[-1] == "ok"
     assert (tmp_path / "out.npz").exists()
+    drop_outputs(tmp_path)

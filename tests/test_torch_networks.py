@@ -10,6 +10,8 @@ the grouped-conv modconv against the JAX prescale/postscale form.
 """
 
 import dataclasses
+import pathlib
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -60,6 +62,18 @@ def numpy_tree(tree, rng=None):
             v = rng.standard_normal(v.shape).astype(np.float32) * 0.3
         return v
     return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def drop_outputs(path) -> None:
+    """Delete what a test wrote under its `path` once it has read it back:
+    checkpoints and weight files of up to a few hundred MB would otherwise
+    stay in pytest's base temporary directory, which keeps its last three
+    runs."""
+    for p in pathlib.Path(path).iterdir():
+        if p.is_dir():
+            shutil.rmtree(p)
+        else:
+            p.unlink()
 
 
 def _gen_params(seed=0):

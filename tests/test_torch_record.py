@@ -30,6 +30,7 @@ from hfa_gp_tpu_torch.data.dataset import EpochSeededBatches
 from hfa_gp_tpu_torch.models.arcface import convert
 from hfa_gp_tpu_torch.train import arcface as arc
 from hfa_gp_tpu_torch.train import checkpoint as ckpt
+from tests.test_torch_networks import drop_outputs
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -182,6 +183,7 @@ def test_rec_cli_resume_continues_bit_for_bit(pack, tmp_path, capsys):
     for part in ("backbone", "batch_stats", "fc_opt_state"):
         assert sorted(a[part]) == sorted(b[part])
         assert all(torch.equal(a[part][k], b[part][k]) for k in a[part])
+    drop_outputs(tmp_path)
 
 
 def _recorded_losses(module, monkeypatch) -> list:

@@ -36,7 +36,7 @@ from hfa_gp_tpu_torch.models.avatar import heads as theads
 from hfa_gp_tpu_torch.utils import convert
 from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
-from tests.test_torch_networks import torch_small_avatar
+from tests.test_torch_networks import drop_outputs, torch_small_avatar
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -182,6 +182,7 @@ def test_cli_renders_the_fixture_dataset(small_cli_config, dataset_root,
         .astype(np.int16)
     assert got8.shape == (4, 64, 64, 3)
     assert np.abs(got8 - want8).max() <= 1
+    drop_outputs(tmp_path)
 
 
 def test_cli_random_init_and_side_by_side(small_cli_config, dataset_root,

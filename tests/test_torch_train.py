@@ -39,7 +39,7 @@ from hfa_gp_tpu_torch.train import state as tstate
 from hfa_gp_tpu_torch.utils import convert
 from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
-from tests.test_torch_networks import numpy_tree, torch_small_config
+from tests.test_torch_networks import (drop_outputs, numpy_tree, torch_small_config)
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -258,6 +258,7 @@ def test_train_rgb_cli_resume_and_reenact(small_cli_config, dataset_root,
          "cpu"]))
     assert len(glob.glob(os.path.join(demo, "t", "*.png"))) == 4
     assert glob.glob(os.path.join(demo, "t", "trec.*"))
+    drop_outputs(tmp_path)
 
 
 def test_train_rgb_refuses_more_than_one_process(small_cli_config,

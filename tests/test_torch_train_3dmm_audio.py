@@ -44,7 +44,7 @@ from hfa_gp_tpu_torch.train import t3dmm as tt3dmm
 from hfa_gp_tpu_torch.utils import convert
 from tests.fixtures import make_avatar_dataset
 from tests.test_eg3d import small_config
-from tests.test_torch_networks import numpy_tree, torch_small_config
+from tests.test_torch_networks import (drop_outputs, numpy_tree, torch_small_config)
 
 # One intra-op thread: the suite runs several worker processes side by
 # side, and a thread pool per worker as wide as the machine makes them wait
@@ -343,6 +343,7 @@ def test_train_3dmm_cli_resume_and_reenact(small_cli_config, dataset_root,
         assert [os.path.basename(p) for p in pngs] == \
             [f"{i:05d}.png" for i in range(4)]
         assert glob.glob(os.path.join(demo, name, "rec.*"))
+    drop_outputs(tmp_path)
 
 
 def test_train_audio_cli_switch_resume_and_reenact(small_cli_config,
@@ -421,6 +422,7 @@ def test_train_audio_cli_switch_resume_and_reenact(small_cli_config,
     pngs = sorted(glob.glob(os.path.join(demo, "a", "*.png")))
     assert [os.path.basename(p) for p in pngs] == \
         [f"{i:05d}.png" for i in range(4)]
+    drop_outputs(tmp_path)
 
 
 AVATAR_CLIS = [train_rgb, run_recon_video_rgb, train_3dmm, train_audio,
