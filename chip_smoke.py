@@ -160,7 +160,29 @@ result line:
      seams.npz`, `hfa_gp_tpu_torch.tools.check_golden`) on the card:
      `ray_march` through the marcher kernel, `sample_pdf`,
      `bilinear_resize` and `block_apply` (up=True), each within
-     `tests/test_golden.py`'s tolerance.
+     `tests/test_golden.py`'s tolerance;
+ 35. several processes on the one card (each multi-rank run is this script
+     started as ranks of its own, `--rank_worker`, through the CLIs' entry
+     points, over gloo): each rank's backend and device, which collectives
+     gloo runs on CUDA tensors, one rank's all-reduce of 175 MB
+     (iresnet50's gradient) from device and from host memory, and one
+     attempt at NCCL with two ranks on the card, whose refusal is printed
+     and is no failure;
+ 36. `train_arcface.main` on 2 x 2 ranks (n_model 2): iresnet50 fp32,
+     1,000,000 classes dense, global batch 256, 3 steps with checkpoints:
+     losses and the table's sum of |w| against two one-rank runs of the
+     same command, within 10 times their own spread (at least 1e-5); one
+     K5 and one K6 launch a step on each rank, on its 500,000-row shard;
+     the same backbone bits on every rank; the primary's files only; then
+     one rank resumes the step-2 checkpoint and its step 3 continues the
+     2 x 2 run; samples/s and each rank's peak memory;
+ 37. `train_rgb.main` on 2 ranks at full width, global batch 2, 2 steps:
+     disjoint rows that make up the one-rank batch, losses and what the
+     steps moved the params by against two one-rank runs (within 10 times
+     their spread, at least 1e-5 and 1e-4), each rank's launches equal to
+     one rank's, the primary's files only; then `run_recon_video_rgb.main`
+     on 2 ranks at batch 8, frames within one level of one rank's, written
+     by the primary alone.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step (a bf16 one for the bf16
@@ -168,13 +190,15 @@ entries, whose launches are [24]'s). The line before the last is a
 JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, with no result line, when CUDA is unavailable or when
-it is run outside a checkout. It imports nothing of JAX, of the JAX
+it is run outside a checkout; a rank of [35]-[37] that fails fails the
+script. It imports nothing of JAX, of the JAX
 package `hfa_gp_tpu` or of the repository's root `tools`, and checks that
 before the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import glob
 import json
@@ -4258,7 +4282,668 @@ def phase_golden() -> None:
              f"{raymarch.LAUNCHES - n0} times, not once")
 
 
+# [35]-[37], the port over several processes: each multi-rank run is this
+# script started as ranks of its own (`--rank_worker <phase>`, with the
+# WORLD_SIZE/RANK/MASTER_ADDR/MASTER_PORT contract), through the CLIs'
+# entry points, on the one card: the ranks share it and talk over gloo.
+# Each rank writes its result as JSON; the first rank to fail, or a group
+# that outlives MP_TIMEOUT, fails the phase. Each rank waits at most
+# MP_DIST_TIMEOUT in a collective, so a dead rank fails the others.
+MP_TIMEOUT = 600
+MP_DIST_TIMEOUT = 300
+# an all-reduce of iresnet50's gradient (43.6M fp32 numbers)
+MP_ALLREDUCE_BYTES = 175_000_000
+MP_ARC_STEPS = 3
+MP_ARC_CLASSES = 1_000_000
+MP_RGB_STEPS = 2
+MP_REENACT_BATCH = 8
+# tolerances of [36] and [37] against one rank: this factor times the one
+# rank's own run-to-run spread (two runs of one command), and no less than
+# a floor: losses and sums 1e-5 (the ranks sum the batch in another
+# order); what Adam's first steps moved the avatar's params by 1e-2 in
+# relative L2: each moves by about lr·sign(g), and a gradient within
+# rounding of 0 may take the other sign, which two ranks' sum in another
+# order does more often than one rank's atomics from run to run (1.1e-3
+# against a spread of 3.5e-4 on an NVIDIA H100 80GB HBM3 at 700 W; a rank
+# stepping on its own half-batch gradient moves a large share of signs)
+MP_SPREAD_FACTOR = 10.0
+MP_LOSS_FLOOR = 1e-5
+MP_PARAMS_FLOOR = 1e-2
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(phase: str, world: int, out: str, *extra: str,
+                timeout: float = MP_TIMEOUT, must_pass: bool = True,
+                env_extra: dict | None = None):
+    """`chip_smoke.py --rank_worker phase` on `world` ranks of the one card.
+    Returns (each rank's JSON result or None, exit codes, log tails)."""
+    os.makedirs(out, exist_ok=True)
+    # the ranks share the card with this process: hand back its cache
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               **(env_extra or {}))
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank_worker", phase,
+         "--out", out, *extra],
+        env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=ROOT,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    tails = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.log")) as f:
+            tails.append(f.read()[-3000:])
+    if must_pass and any(codes):
+        bad = next(r for r, c in enumerate(codes) if c)
+        fail(f"{phase}: rank {bad} of {world} exited {codes[bad]} (codes "
+             f"{codes}):\n{tails[bad]}")
+    results = []
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.json")
+        results.append(json.load(open(path)) if os.path.exists(path)
+                       else None)
+    return results, codes, tails
+
+
+# -- the ranks' side ----------------------------------------------------------
+
+
+def sha(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def rank_setup(a) -> dict:
+    """[35] this rank's backend and device; which collectives gloo runs on
+    CUDA tensors; one all-reduce of 175 MB, on the card and from host
+    memory."""
+    import torch.distributed as dist
+
+    from hfa_gp_tpu_torch.cli import common
+    from hfa_gp_tpu_torch.parallel import distributed
+    args = argparse_ns(device="cuda")
+    device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    rank, world = distributed.world()
+    out = {"backend": distributed.backend(), "device": str(device),
+           "own_card": distributed.own_cards(args), "collectives": {}}
+
+    def probe(name, fn):
+        try:
+            ok = bool(fn())
+            torch.cuda.synchronize()
+            out["collectives"][name] = "ran" if ok else "ran, wrong result"
+        except Exception as e:        # what gloo refuses on CUDA tensors
+            out["collectives"][name] = f"{type(e).__name__}: {str(e)[:160]}"
+
+    def all_reduce():
+        t = torch.full((4,), float(rank + 1), device=device)
+        dist.all_reduce(t)
+        return torch.all(t == world * (world + 1) / 2)
+
+    def broadcast():
+        t = torch.full((4,), float(rank), device=device)
+        dist.broadcast(t, src=0)
+        return torch.all(t == 0)
+
+    def all_gather_into_tensor():
+        t = torch.full((2,), float(rank), device=device)
+        o = torch.empty((2 * world,), device=device)
+        dist.all_gather_into_tensor(o, t)
+        return torch.equal(o.cpu(), torch.arange(world).float()
+                           .repeat_interleave(2))
+
+    def all_gather():
+        t = torch.full((2,), float(rank), device=device)
+        o = [torch.empty_like(t) for _ in range(world)]
+        dist.all_gather(o, t)
+        return all(torch.all(x == i) for i, x in enumerate(o))
+
+    def reduce_scatter_tensor():
+        t = torch.ones((world,), device=device)
+        o = torch.empty((1,), device=device)
+        dist.reduce_scatter_tensor(o, t)
+        return torch.all(o == world)
+
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("all_gather_into_tensor", all_gather_into_tensor),
+                     ("all_gather", all_gather),
+                     ("reduce_scatter_tensor", reduce_scatter_tensor)):
+        probe(name, fn)
+    n = MP_ALLREDUCE_BYTES // 4
+    for where in ("cuda", "cpu"):
+        buf = torch.ones((n,), device=device if where == "cuda" else "cpu")
+        dist.all_reduce(buf)                  # warm-up
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"allreduce_ms_{where}"] = float(np.median(times))
+        del buf
+    return out
+
+
+def argparse_ns(**kw):
+    import argparse
+    base = dict(coordinator_address=None, num_processes=None,
+                process_id=None)
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def rank_nccl(a) -> dict:
+    """[35] two ranks of one NCCL communicator on the one card."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}",
+        world_size=int(os.environ["WORLD_SIZE"]),
+        rank=int(os.environ["RANK"]),
+        timeout=datetime.timedelta(seconds=60))
+    t = torch.ones((4,), device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return {"all_reduce": t.tolist()}
+
+
+@contextlib.contextmanager
+def timed_steps(train_arcface):
+    """Every step of the `train_arcface.main` runs inside, timed and
+    synchronised before and after: yields the list of seconds."""
+    real, into = train_arcface.arc.make_train_step, []
+
+    def make(*x, **kw):
+        step = real(*x, **kw)
+
+        def timed(*sa, **skw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*sa, **skw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    train_arcface.arc.make_train_step = make
+    try:
+        yield into
+    finally:
+        train_arcface.arc.make_train_step = real
+
+
+def rank_arcface(a) -> dict:
+    """[36] train_arcface.main on this rank: its losses, launches, the rows
+    K5/K6 ran on, its shard's checksum, the bits of its backbone and
+    running moments, its peak memory and files."""
+    from hfa_gp_tpu_torch.cli import train_arcface
+    from hfa_gp_tpu_torch.core.kernels import flash_ce
+    rank = int(os.environ["RANK"])
+    states, rows = [], []
+    real_init, real_stats = train_arcface.arc.init_state, \
+        flash_ce.flash_ce_stats
+
+    def init(*x, **kw):
+        states.append(real_init(*x, **kw))
+        return states[-1]
+
+    def stats(ne, w, *x, **kw):
+        rows.append(int(w.shape[0]))
+        return real_stats(ne, w, *x, **kw)
+
+    train_arcface.arc.init_state = init
+    flash_ce.flash_ce_stats = stats
+    # where a step's time goes: the device work queued before each
+    # all-reduce (a synchronise), and the all-reduce itself
+    import torch.distributed as dist
+    real_all_reduce, coll = dist.all_reduce, {"n": 0, "wait": 0.0,
+                                              "in": 0.0}
+
+    def all_reduce(*x, **kw):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = real_all_reduce(*x, **kw)
+        coll["n"] += 1
+        coll["wait"] += t1 - t0
+        coll["in"] += time.perf_counter() - t1
+        return r
+
+    dist.all_reduce = all_reduce
+    out_dir = os.path.join(a.out, f"run{rank}")
+    args = arc_args("--num_classes", str(MP_ARC_CLASSES), "--num_steps",
+                    str(MP_ARC_STEPS), "--save_freq", "2", "--n_model", "2",
+                    "--output", out_dir)
+    with timed_steps(train_arcface) as step_s:
+        losses, launches, seconds, peak, sps = run_arcface_cli(args)
+    st = states[-1]
+    return {"losses": losses, "launches": launches, "ce_rows": sorted(
+                set(rows)), "seconds": seconds, "peak_gib": peak / GIB,
+            "sps": sps, "table_abs_sum": float(st.fc_weight.double().abs()
+                                               .sum()),
+            "table_rows": int(st.fc_weight.shape[0]),
+            "backbone": sha(st.backbone.state_dict().values()),
+            "stats": sha(st.batch_stats.state_dict().values()),
+            "files": sorted(os.listdir(out_dir))
+            if os.path.isdir(out_dir) else None, "all_reduces": coll,
+            "step_s": step_s}
+
+
+class RecordingRows:
+    """Wraps a HeadData class: the rows of the train split read."""
+    rows: list = []
+
+    @classmethod
+    def wrap(cls, real):
+        class Recorded(real):
+            def __getitem__(self, idx):
+                if self.ds_path.rstrip("/").endswith(
+                        os.path.join("train", "cropped_images")):
+                    cls.rows.append(int(idx))
+                return super().__getitem__(idx)
+        return Recorded
+
+
+def run_rgb_cli(root: str, exp: str) -> dict:
+    """train_rgb.main, MP_RGB_STEPS steps at full width, global batch 2:
+    losses, launches, the rows of the train split read, seconds."""
+    from hfa_gp_tpu_torch.cli import train_rgb
+    from hfa_gp_tpu_torch.train import rgb as rgb_train
+    real_ds, real_step = train_rgb.HeadData, rgb_train.train_step
+    losses = []
+
+    def step(*x, **kw):
+        m = real_step(*x, **kw)
+        losses.append({k: float(v) for k, v in m.items()})
+        return m
+
+    RecordingRows.rows = []
+    train_rgb.HeadData = RecordingRows.wrap(real_ds)
+    rgb_train.train_step = step
+    args = train_rgb.build_argparser().parse_args([
+        "--dataset_root", root, "--person", "person_3", "--size", "256",
+        "--batch_size", "2", "--iter", str(MP_RGB_STEPS), "--display_freq",
+        "1000", "--save_freq", str(MP_RGB_STEPS), "--tune_iter", "0",
+        "--exp_path", exp, "--exp_name", "dp", "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        train_rgb.main(args)
+    finally:
+        train_rgb.HeadData, rgb_train.train_step = real_ds, real_step
+    launches = read_launches()
+    torch.cuda.synchronize()
+    return {"losses": losses, "launches": launches,
+            "rows": list(RecordingRows.rows),
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / GIB}
+
+
+def rank_rgb(a) -> dict:
+    rank = int(os.environ["RANK"])
+    exp = os.path.join(a.out, f"exps{rank}")
+    res = run_rgb_cli(a.data, exp)
+    res["files"] = sorted(os.listdir(exp)) if os.path.isdir(exp) else None
+    return res
+
+
+def run_reenact_cli(root: str, demo: str) -> dict:
+    from hfa_gp_tpu_torch.cli import run_recon_video_rgb
+    args = run_recon_video_rgb.build_argparser().parse_args([
+        "--dataset_root", root, "--person", "person_3", "--size", "256",
+        "--render_batch", str(MP_REENACT_BATCH), "--demo_dir", demo,
+        "--demo_name", "dp", "--fps", "4", "--device", "cuda"])
+    reset_launches()
+    t0 = time.perf_counter()
+    run_recon_video_rgb.main(args)
+    launches = read_launches()
+    torch.cuda.synchronize()
+    return {"launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def rank_reenact(a) -> dict:
+    rank = int(os.environ["RANK"])
+    demo = os.path.join(a.out, f"demo{rank}")
+    res = run_reenact_cli(a.data, demo)
+    res["files"] = sorted(os.listdir(demo)) if os.path.isdir(demo) else None
+    return res
+
+
+RANK_PHASES = {"setup": rank_setup, "nccl": rank_nccl,
+               "arcface": rank_arcface, "rgb": rank_rgb,
+               "reenact": rank_reenact}
+
+
+def rank_worker(argv: list[str]) -> None:
+    """One rank of a [35]-[37] run: its result to {out}/rank{RANK}.json."""
+    import argparse
+    import datetime
+    import traceback
+    p = argparse.ArgumentParser()
+    p.add_argument("--rank_worker", choices=sorted(RANK_PHASES))
+    p.add_argument("--out")
+    p.add_argument("--data", default=None)
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("a rank found no CUDA card")
+    sys.path.insert(0, ROOT)
+    from hfa_gp_tpu_torch.cli import common
+    from hfa_gp_tpu_torch.parallel import distributed
+    common.fp32_backends()
+    distributed.TIMEOUT = datetime.timedelta(seconds=MP_DIST_TIMEOUT)
+    try:
+        result = RANK_PHASES[a.rank_worker](a)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)              # no waiting on the others' collectives
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hfa_gp_tpu",
+                                            "tools"))
+    if foreign:
+        fail(f"a rank imported JAX or the JAX package: {foreign[:5]}")
+    rank = os.environ["RANK"]
+    with open(os.path.join(a.out, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    print(f"rank {rank}: {json.dumps(result)[:2000]}", flush=True)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+# -- the phases ---------------------------------------------------------------
+
+
+def phase_mp_setup(tmp: str) -> dict:
+    """[35] the ranks' backend and device, gloo's collectives on CUDA
+    tensors, one 175 MB all-reduce, and one attempt at NCCL with two ranks
+    on the one card."""
+    ranks, _, _ = spawn_ranks("setup", 4, os.path.join(tmp, "setup"))
+    r0 = ranks[0]
+    for r, res in enumerate(ranks):
+        print(f"[35] rank {r}: backend {res['backend']}, device "
+              f"{res['device']}, a card of its own: {res['own_card']}",
+              flush=True)
+    print(f"[35] gloo on CUDA tensors: {r0['collectives']}", flush=True)
+    print(f"[35] all-reduce of {MP_ALLREDUCE_BYTES / 1e6:.0f} MB over 4 "
+          f"ranks sharing the card (gloo): from device memory "
+          f"{r0['allreduce_ms_cuda']:.1f} ms, from host memory "
+          f"{r0['allreduce_ms_cpu']:.1f} ms (rank 0, median of 3)",
+          flush=True)
+    if any(res["backend"] != "gloo" or res["device"] != "cuda:0"
+           for res in ranks):
+        fail(f"[35] ranks sharing the card should be gloo on cuda:0: "
+             f"{[(x['backend'], x['device']) for x in ranks]}")
+    for name in ("all_reduce", "broadcast"):
+        # what the port's collectives use on the card
+        if r0["collectives"][name] != "ran":
+            fail(f"[35] gloo's {name} on CUDA tensors: "
+                 f"{r0['collectives'][name]}")
+    nres, codes, tails = spawn_ranks("nccl", 2, os.path.join(tmp, "nccl"),
+                                     timeout=150, must_pass=False,
+                                     env_extra={"NCCL_DEBUG": "WARN"})
+    said = [re.search(r"(Duplicate GPU[^\n]*|NCCL WARN[^\n]*|"
+                      r"NCCL[^\n]*[Ee]rror[^\n]*)", t) for t in tails]
+    said = [m.group(0)[:300] if m else t[-300:] for m, t in zip(said, tails)]
+    what = (f"ran: {nres}" if not any(codes) else
+            f"refused (exit codes {codes}): {said}")
+    print(f"[35] NCCL with two ranks on the one card: {what}", flush=True)
+    return {"allreduce_ms": r0["allreduce_ms_cuda"],
+            "allreduce_host_ms": r0["allreduce_ms_cpu"],
+            "collectives": r0["collectives"], "nccl": what}
+
+
+def spread(a: list[float], b: list[float]) -> float:
+    """The largest relative difference between two runs' numbers."""
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def one_rank_arcface(out: str | None) -> dict:
+    """[36]'s command on one rank: losses and the table's checksum."""
+    from hfa_gp_tpu_torch.cli import train_arcface
+    states = []
+    real_init = train_arcface.arc.init_state
+
+    def init(*x, **kw):
+        states.append(real_init(*x, **kw))
+        return states[-1]
+
+    train_arcface.arc.init_state = init
+    extra = ["--output", out, "--resume"] if out else []
+    try:
+        with timed_steps(train_arcface) as step_s:
+            losses, launches, seconds, peak, sps = run_arcface_cli(arc_args(
+                "--num_classes", str(MP_ARC_CLASSES), "--num_steps",
+                str(MP_ARC_STEPS), *extra))
+    finally:
+        train_arcface.arc.init_state = real_init
+    st = states[-1]
+    res = {"losses": losses, "launches": launches, "sps": sps,
+           "table_abs_sum": float(st.fc_weight.double().abs().sum()),
+           "peak_gib": peak / GIB, "step_s": step_s}
+    del st, states
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_mp_arcface(tmp: str) -> dict:
+    """[36] train_arcface.main on 2 x 2 ranks (n_model 2), iresnet50 fp32,
+    1,000,000 classes dense, global batch 256, MP_ARC_STEPS steps."""
+    out = os.path.join(tmp, "arc")
+    t0 = time.perf_counter()
+    ranks, _, _ = spawn_ranks("arcface", 4, out)
+    wall = time.perf_counter() - t0
+    one = [one_rank_arcface(None) for _ in range(2)]
+    tol = max(MP_SPREAD_FACTOR * spread(
+        one[0]["losses"] + [one[0]["table_abs_sum"]],
+        one[1]["losses"] + [one[1]["table_abs_sum"]]), MP_LOSS_FLOOR)
+    table = ranks[0]["table_abs_sum"] + ranks[1]["table_abs_sum"]
+    gap = spread(ranks[0]["losses"] + [table],
+                 one[0]["losses"] + [one[0]["table_abs_sum"]])
+    print(f"[36] train_arcface on 2 x 2 ranks (n_model 2, one card, gloo): "
+          f"{ARC_NET} fp32, {MP_ARC_CLASSES:,} classes dense, global batch "
+          f"{ARC_BATCH}, {MP_ARC_STEPS} steps in {wall:.2f} s (rank "
+          f"start-up, init and checkpoints included); losses "
+          f"{[round(x, 5) for x in ranks[0]['losses']]}, one rank "
+          f"{[round(x, 5) for x in one[0]['losses']]}; relative gap (losses "
+          f"and the table's sum of |w|) {gap:.3e} against the tolerance "
+          f"{tol:.3e} (x{MP_SPREAD_FACTOR:g} the one rank's run-to-run "
+          f"spread, at least {MP_LOSS_FLOOR:g})", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"[36] rank {r}: launches {res['launches']}, K5/K6 on "
+              f"{res['ce_rows']} rows, samples/s {res['sps']:.1f} (global "
+              f"batch), peak {res['peak_gib']:.3f} GiB, backbone "
+              f"{res['backbone']}, running moments {res['stats']}, files "
+              f"{res['files']}", flush=True)
+    c = ranks[0]["all_reduces"]
+    print(f"[36] rank 0 over the run ({MP_ARC_STEPS} steps, init and "
+          f"checkpoints included): {c['n']} all-reduces, {c['wait']:.2f} s "
+          f"waiting for the device before them, {c['in']:.2f} s in them; "
+          f"{ranks[0]['seconds']:.2f} s in all", flush=True)
+    # a step, synchronised before and after, the first one left out
+    mp_ms = 1e3 * float(np.median(ranks[0]["step_s"][1:]))
+    one_ms = 1e3 * float(np.median(one[0]["step_s"][1:]))
+    print(f"[36] a step: 2 x 2 ranks {mp_ms:.1f} ms = "
+          f"{ARC_BATCH / mp_ms * 1e3:.1f} samples/s, one rank {one_ms:.1f} "
+          f"ms = {ARC_BATCH / one_ms * 1e3:.1f} samples/s (steps 2-"
+          f"{MP_ARC_STEPS}); the CLI's samples/s: one rank "
+          f"{one[0]['sps']:.1f}, peak {one[0]['peak_gib']:.3f} GiB",
+          flush=True)
+    if not gap <= tol:
+        fail(f"[36] 2 x 2 ranks part from one rank by {gap:.3e} > {tol:.3e}")
+    expected = {**NO_LAUNCHES, "flash_ce_fwd": MP_ARC_STEPS,
+                "flash_ce_bwd": MP_ARC_STEPS}
+    shard = MP_ARC_CLASSES // 2
+    for r, res in enumerate(ranks):
+        if res["launches"] != expected or res["ce_rows"] != [shard] \
+                or res["table_rows"] != shard:
+            fail(f"[36] rank {r} launched {res['launches']} on "
+                 f"{res['ce_rows']} rows, expected {expected} on {shard}")
+        if res["backbone"] != ranks[0]["backbone"]:
+            fail(f"[36] rank {r}'s backbone differs from rank 0's")
+        want = ["checkpoint", "training.log"] if r == 0 else None
+        if res["files"] != want:
+            fail(f"[36] rank {r} wrote {res['files']}, expected {want}")
+    cdir = os.path.join(out, "run0", "checkpoint")
+    if sorted(os.listdir(cdir)) != ["000002", "000003"]:
+        fail(f"[36] checkpoints {sorted(os.listdir(cdir))}")
+    # one rank resumes the 2 x 2 run's step-2 checkpoint
+    os.remove(os.path.join(cdir, "000003"))
+    resumed = one_rank_arcface(os.path.join(out, "run0"))
+    rgap = spread(resumed["losses"] + [resumed["table_abs_sum"]],
+                  ranks[0]["losses"][-1:] + [table])
+    print(f"[36] one rank resumed the 2 x 2 checkpoint of step 2: step 3's "
+          f"loss {resumed['losses']}, 2 x 2 {ranks[0]['losses'][-1:]}, "
+          f"relative gap (with the table's sum of |w|) {rgap:.3e}",
+          flush=True)
+    if len(resumed["losses"]) != 1 or not rgap <= tol:
+        fail(f"[36] the resumed run does not continue the 2 x 2 one: "
+             f"{resumed['losses']}, gap {rgap:.3e} > {tol:.3e}")
+    return {"launches_per_rank": ranks[0]["launches"],
+            "sps": ranks[0]["sps"], "step_ms": mp_ms,
+            "one_rank_step_ms": one_ms,
+            "peak_gib": [r["peak_gib"] for r in ranks]}
+
+
+def params_moved_gap(paths_a: str, path_b: str, init) -> float:
+    """Relative L2 gap of what the updates moved the params by, between
+    two checkpoints of the same seeded init."""
+    from hfa_gp_tpu_torch.train import checkpoint as ckpt
+    a = ckpt.load_params(paths_a).state_dict()
+    b = ckpt.load_params(path_b).state_dict()
+    num = den = 0.0
+    for k, v in init.items():
+        da, db = a[k].double() - v.double(), b[k].double() - v.double()
+        num += float((da - db).square().sum())
+        den += float(db.square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def phase_mp_rgb(tmp: str) -> dict:
+    """[37] train_rgb.main on 2 ranks at full width, global batch 2, then
+    run_recon_video_rgb.main on 2 ranks at batch 8."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.cli import train_rgb
+    from hfa_gp_tpu_torch.models.avatar import heads
+    write_dataset(tmp, 6, split="train")
+    write_dataset(tmp, MP_REENACT_BATCH, split="test2")
+    ranks, _, _ = spawn_ranks("rgb", 2, os.path.join(tmp, "rgb"), "--data",
+                              tmp)
+    one = [run_rgb_cli(tmp, os.path.join(tmp, f"one{i}")) for i in range(2)]
+    ck = f"{MP_RGB_STEPS - 1:06d}"
+
+    def ckpt_of(exp):
+        return os.path.join(exp, "dp", "checkpoint", ck)
+
+    init = heads.init_avatar_rgb(torch.Generator().manual_seed(
+        train_rgb.SEED), heads.AvatarConfig()).state_dict()
+    loss = [[m[k] for m in run["losses"] for k in ("l2_loss", "lpips_loss")]
+            for run in (ranks[0], ranks[1], one[0], one[1])]
+    tol_loss = max(MP_SPREAD_FACTOR * spread(loss[2], loss[3]),
+                   MP_LOSS_FLOOR)
+    spread_p = params_moved_gap(ckpt_of(os.path.join(tmp, "one1")),
+                                ckpt_of(os.path.join(tmp, "one0")), init)
+    tol_p = max(MP_SPREAD_FACTOR * spread_p, MP_PARAMS_FLOOR)
+    gap_loss = max(spread(loss[0], loss[2]), spread(loss[1], loss[2]))
+    gap_p = params_moved_gap(ckpt_of(os.path.join(tmp, "rgb", "exps0")),
+                             ckpt_of(os.path.join(tmp, "one0")), init)
+    rows = [r["rows"] for r in ranks]
+    print(f"[37] train_rgb on 2 ranks (one card, gloo), full width, global "
+          f"batch 2, {MP_RGB_STEPS} steps: rows read {rows}, one rank "
+          f"{one[0]['rows']}; (l2, lpips) {loss[0]}, one rank {loss[2]}: "
+          f"gap {gap_loss:.3e} (tolerance {tol_loss:.3e}); what the steps "
+          f"moved the params by, relative L2 gap {gap_p:.3e} (tolerance "
+          f"{tol_p:.3e}, the one rank's own {spread_p:.3e})", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"[37] rank {r}: launches {res['launches']}, "
+              f"{res['seconds']:.2f} s, peak {res['peak_gib']:.3f} GiB, "
+              f"files {res['files']}", flush=True)
+    print(f"[37] one rank: launches {one[0]['launches']}, "
+          f"{one[0]['seconds']:.2f} s, peak {one[0]['peak_gib']:.3f} GiB",
+          flush=True)
+    if sorted(rows[0] + rows[1]) != sorted(one[0]["rows"]) \
+            or set(rows[0]) & set(rows[1]):
+        fail(f"[37] rows {rows} are not a disjoint split of {one[0]['rows']}")
+    if not gap_loss <= tol_loss or not gap_p <= tol_p:
+        fail(f"[37] 2 ranks part from one: losses {gap_loss:.3e} > "
+             f"{tol_loss:.3e} or params {gap_p:.3e} > {tol_p:.3e}")
+    for r, res in enumerate(ranks):
+        if res["launches"] != one[0]["launches"]:
+            fail(f"[37] rank {r} launched {res['launches']}, one rank "
+                 f"{one[0]['launches']}")
+        want = ["dp"] if r == 0 else None
+        if res["files"] != want:
+            fail(f"[37] rank {r} wrote {res['files']}, expected {want}")
+
+    # reenactment, batch 8 over 2 ranks
+    rranks, _, _ = spawn_ranks("reenact", 2, os.path.join(tmp, "reenact"),
+                               "--data", tmp)
+    rone = run_reenact_cli(tmp, os.path.join(tmp, "reenact_one"))
+    got = sorted(glob.glob(os.path.join(tmp, "reenact", "demo0", "dp",
+                                        "*.png")))
+    want = sorted(glob.glob(os.path.join(tmp, "reenact_one", "dp", "*.png")))
+    diffs = [int(np.abs(np.asarray(Image.open(x), np.int16)
+                        - np.asarray(Image.open(y), np.int16)).max())
+             for x, y in zip(got, want)]
+    print(f"[37] run_recon_video_rgb on 2 ranks at batch "
+          f"{MP_REENACT_BATCH}: {len(got)} frames, largest level difference "
+          f"from one rank's {diffs}; rank launches "
+          f"{[r['launches'] for r in rranks]}, one rank {rone['launches']}; "
+          f"files {[r['files'] for r in rranks]}", flush=True)
+    if len(got) != len(want) or len(got) != MP_REENACT_BATCH \
+            or max(diffs) > 1:
+        fail(f"[37] frames {len(got)} of {len(want)}, level differences "
+             f"{diffs}")
+    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2}
+    for r, res in enumerate(rranks):
+        if res["launches"] != per_rank:
+            fail(f"[37] reenactment rank {r} launched {res['launches']}")
+        if res["files"] != (["dp"] if r == 0 else None):
+            fail(f"[37] reenactment rank {r} wrote {res['files']}")
+    return {"launches_per_rank": ranks[0]["launches"],
+            "reenact_launches_per_rank": rranks[0]["launches"]}
+
+
 def main() -> None:
+    if "--rank_worker" in sys.argv:
+        rank_worker(sys.argv[1:])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a "
              "CUDA card")
@@ -4329,6 +5014,12 @@ def main() -> None:
           "card's machine has neither png.h nor jpeglib.h (ROADMAP.md §1.3)",
           flush=True)
     phase_golden()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_mp_setup(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp_arc = phase_mp_arcface(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        mp_rgb = phase_mp_rgb(tmp)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
@@ -4341,6 +5032,9 @@ def main() -> None:
         elif k["name"].startswith("flash_ce"):
             k["launches"] = arcface_launches[k["name"]]
             k["launches_rec"] = rec_launches[k["name"]]
+            # [36]: each rank of 2 x 2, on its 500,000-row shard
+            k["launches_2x2_per_rank"] = \
+                mp_arc["launches_per_rank"][k["name"]]
         elif k["name"] == "triplane_probe":
             k["launches"] = probe_launches[k["name"]]
         else:
@@ -4353,6 +5047,11 @@ def main() -> None:
             k["launches_ray_chunk_reenact"] = \
                 flags["chunk_launches"][k["name"]]
             k["launches_converted_reenact"] = convert_launches[k["name"]]
+            # [37]: each of 2 data-parallel ranks
+            k["launches_dp_step_per_rank"] = \
+                mp_rgb["launches_per_rank"][k["name"]]
+            k["launches_dp_reenact_per_rank"] = \
+                mp_rgb["reenact_launches_per_rank"][k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
     # what each kernel loses on a unit of each path: launches x (ms - bound)

@@ -4,9 +4,11 @@ construction, weight loading, experiment directories and video assembly.
 
 Every flag of the JAX CLI is accepted, so reference command lines port
 over unchanged. `--addr` and `--port` are ignored, as in the JAX CLI. Where
-another flag asks for something this port does not do (several processes
-or devices, TPU machinery, `--trace_dir` outside `run_recon_video_rgb`),
-`avatar_config` raises; none is ignored silently.
+another flag asks for something this port does not do (ray sharding over
+a model axis, TPU machinery, `--trace_dir` outside `run_recon_video_rgb`),
+`avatar_config` raises; none is ignored silently. Several processes
+(`parallel/distributed.py`) split the batch: each CLI joins the process
+group after `device_from_args` has named the rank's device.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import torch
 from ..models import lpips as lpips_mod
 from ..models.avatar.heads import AvatarConfig
 from ..models.avatar.subspace import load_pti_bases
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..utils import convert
 
 LPIPS_SEED = 777
@@ -67,7 +71,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     # the reference's DDP rendezvous: accepted and ignored, as in JAX
     p.add_argument("--addr", type=str, default="localhost")
     p.add_argument("--port", type=str, default="12345")
-    add_distributed_flags(p)
+    distributed.add_distributed_flags(p)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; CUDA runs the hand-written kernels")
     # accepted for parity with the JAX CLI; see avatar_config
@@ -75,7 +79,8 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="bfloat16 synthesis chains and OSG decoder (fp32 "
                         "master weights, kernels, image and loss)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="ray sharding; only 1 is supported")
+                   help="ray sharding over a model axis; only 1 is "
+                        "supported")
     p.add_argument("--pallas_marcher", action="store_true", default=False,
                    help="no effect: the marcher kernel always runs on CUDA")
     p.add_argument("--pallas_sampler", action="store_true", default=None,
@@ -89,26 +94,15 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                         "other CLIs raise)")
 
 
-def add_distributed_flags(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's multi-host flags (hfa_gp_tpu/parallel/distributed.py),
-    accepted for command-line parity; more than one process raises
-    (`single_process`)."""
-    p.add_argument("--coordinator_address", type=str, default=None,
-                   help="host:port of process 0 (not ported: raises)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="total process count (only 1 is supported)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="this process's rank")
-
-
 def avatar_config(args, tracing: bool = False) -> AvatarConfig:
     """AvatarConfig for the flags; raises on a flag the port cannot honour,
     and on `--trace_dir` unless the CLI traces (`tracing`). The avatar CLIs
     call it before anything else. `--bf16` runs the synthesis chains and
     the decoder in bf16, as the JAX CLI does."""
-    single_process(args)
     if args.n_model != 1:
-        raise NotImplementedError("--n_model > 1: the port runs on one device")
+        raise NotImplementedError(
+            "--n_model > 1: ray sharding of the render over a model axis "
+            "is not ported (several processes split the batch instead)")
     if args.pallas_sampler is False:
         raise NotImplementedError("--no_pallas_sampler: on CUDA the port "
                                   "always runs its tri-plane sampler kernel")
@@ -141,19 +135,6 @@ def load_init_bases_2(args, cfg: AvatarConfig) -> torch.Tensor | None:
                           cfg.dim_shape, cfg.eg3d.num_ws, cfg.dim)
 
 
-def single_process(args) -> None:
-    """The port runs in one process on one device: raise on WORLD_SIZE > 1,
-    a coordinator or more than one process."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "WORLD_SIZE > 1: running over several processes is not ported")
-    if args.coordinator_address is not None \
-            or (args.num_processes or 1) > 1:
-        raise NotImplementedError("--coordinator_address/--num_processes: "
-                                  "running over several processes is not "
-                                  "ported")
-
-
 def load_generator_weights(args) -> dict | None:
     """--eg3d_weights (JAX-layout flat npz) → generator params in the
     port's layout, or None for a random generator."""
@@ -178,26 +159,48 @@ def load_lpips(args, device: torch.device | str = "cpu"):
 
 
 def make_dirs(args) -> dict[str, str]:
+    """The run's directories under {exp_path}/{exp_name}, made on the
+    primary rank only (the others write nothing)."""
     base = os.path.join(args.exp_path, args.exp_name)
     dirs = {n: os.path.join(base, n)
             for n in ("log", "checkpoint", "display", "bases")}
-    for d in dirs.values():
-        os.makedirs(d, exist_ok=True)
+    if distributed.is_primary():
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
     return dirs
 
 
 def save_args(args, dirs: dict[str, str]) -> None:
-    """The run's flags as `args.json` beside the logs."""
+    """The run's flags as `args.json` beside the logs (primary rank)."""
+    if not distributed.is_primary():
+        return
     with open(os.path.join(dirs["log"], "args.json"), "w") as f:
         json.dump({k: v for k, v in vars(args).items()
                    if isinstance(v, (int, float, str, bool, type(None)))},
                   f, indent=2)
 
 
+def reenact_batches(n: int, render_batch: int, mesh):
+    """The reenactment CLIs' batches of `render_batch` frames out of n:
+    for each, (its frame indices, this rank's share of them). Over several
+    data-parallel ranks the last batch is padded with its last frame, as in
+    JAX, so that every rank renders as many rows; the caller gathers the
+    rows (`mesh.host_gather`) and keeps the first len(indices)."""
+    bs = max(render_batch, 1)
+    for start in range(0, n, bs):
+        idxs = list(range(start, min(start + bs, n)))
+        if mesh.n_data == 1:
+            yield idxs, idxs
+        else:
+            padded = idxs + [idxs[-1]] * (bs - len(idxs))
+            yield idxs, mesh_mod.process_slice(padded, mesh)
+
+
 def device_from_args(args) -> torch.device:
     """The device `--device` names, set up as every CLI runs it: a CUDA
     device without a card raises (no fallback to the CPU), and on CUDA the
-    backends run full fp32 (`fp32_backends`)."""
+    backends run full fp32 (`fp32_backends`). Over several processes,
+    `cuda` is the rank's card (`distributed.rank_device`)."""
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -205,7 +208,7 @@ def device_from_args(args) -> torch.device:
                                "available (pass --device cpu to run on the "
                                "CPU)")
         fp32_backends()
-    return device
+    return distributed.rank_device(device, args)
 
 
 def fp32_backends() -> None:

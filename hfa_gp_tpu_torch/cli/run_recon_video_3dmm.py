@@ -16,6 +16,9 @@ camera, flipped once by hand into the dataset's convention);
 (`tools/convert_avatar.py --head 3dmm` writes them from a reference .pt
 checkpoint), converted by utils/convert.py. Without either the params are
 a seeded random init.
+Over several processes (`parallel/distributed.py`) each rank renders
+its share of every batch (the last one padded, as in JAX); the
+primary gathers the frames and alone writes them and the video.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import torch
 from ..core import camera as cam
 from ..data.dataset import HeadData3DMM
 from ..models.avatar import heads
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import checkpoint as ckpt
 from ..utils import convert
 from ..utils.logging import save_image
@@ -73,6 +78,9 @@ def main(args) -> None:
     cfg = dataclasses.replace(common.avatar_config(args),
                               params_len=args.params_len)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadData3DMM(args.dataset_type, size=args.size, root=root,
                            person=args.person)
@@ -80,24 +88,30 @@ def main(args) -> None:
         dataset.rotate_labels(args.cam_angle)
     params = load_params(args, cfg, device)
     save_path = os.path.join(args.demo_dir, args.demo_name)
-    os.makedirs(save_path, exist_ok=True)
+    if primary:
+        os.makedirs(save_path, exist_ok=True)
     fixed_label = cam.flip_yz_label(cam.sample_camera_label(
         None, n=1, mode=None))[0] if args.fix_cam else None
 
-    n, bs = len(dataset), max(args.render_batch, 1)
     frame_idx = 0
     with torch.inference_mode():
-        for start in range(0, n, bs):
-            items = [dataset[i] for i in range(start, min(start + bs, n))]
+        for idxs, mine in common.reenact_batches(len(dataset),
+                                                 args.render_batch, mesh):
+            items = [dataset[i] for i in mine]
             labels = torch.stack([fixed_label if fixed_label is not None
                                   else it[1] for it in items]).to(device)
             coeffs = torch.stack([it[2] for it in items]).to(device)
-            out = heads.t3dmm_forward(params, cfg, coeffs, labels)
-            for frame in out.cpu():
-                save_image(frame, os.path.join(save_path,
-                                               f"{frame_idx:05d}.png"))
-                frame_idx += 1
+            out = mesh_mod.host_gather(
+                heads.t3dmm_forward(params, cfg, coeffs, labels),
+                mesh)[:len(idxs)]
+            if primary:
+                for frame in out.cpu():
+                    save_image(frame, os.path.join(save_path,
+                                                   f"{frame_idx:05d}.png"))
+                    frame_idx += 1
 
+    if not primary:
+        return
     gt_dir = dataset.ds_path if args.cat_video else None
     video = common.write_video(save_path, os.path.join(save_path, "rec.mp4"),
                                fps=args.fps, side_by_side_dir=gt_dir)

@@ -15,6 +15,9 @@ frames at a time, writes `{demo_dir}/{demo_name}/%05d.png` and assembles
 audio` writes them from a reference .pt checkpoint), converted by
 utils/convert.py.
 Without either the params are a seeded random init.
+Over several processes (`parallel/distributed.py`) each rank renders
+its share of every batch (the last one padded, as in JAX); the
+primary gathers the frames and alone writes them and the video.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 import torch
 
 from ..data.dataset import HeadDataAudio
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import audio as audio_train
 from ..train import checkpoint as ckpt
 from ..utils import convert
@@ -74,29 +79,35 @@ def main(args) -> None:
                               dim_aud=args.dim_aud, win_size=args.win_size,
                               smo_size=args.smo_size)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataAudio(args.dataset_type, size=args.size, root=root,
                             person=args.person, smo_size=args.smo_size)
     params = load_params(args, cfg, device)
     save_path = os.path.join(args.demo_dir, args.demo_name)
-    os.makedirs(save_path, exist_ok=True)
+    if primary:
+        os.makedirs(save_path, exist_ok=True)
 
-    n, bs = len(dataset), max(args.render_batch, 1)
     frame_idx = 0
     with torch.inference_mode():
-        for start in range(0, n, bs):
-            ids = range(start, min(start + bs, n))
-            labels = torch.stack([dataset[i][1] for i in ids]).to(device)
+        for idxs, mine in common.reenact_batches(len(dataset),
+                                                 args.render_batch, mesh):
+            labels = torch.stack([dataset[i][1] for i in mine]).to(device)
             wins = np.stack([dataset.get_audio_window(i) if args.smooth
-                             else dataset.get_audio(i) for i in ids])
-            out = audio_train.sample(params, cfg,
-                                     torch.from_numpy(wins).to(device),
-                                     labels, args.smooth)
-            for frame in out.cpu():
-                save_image(frame, os.path.join(save_path,
-                                               f"{frame_idx:05d}.png"))
-                frame_idx += 1
+                             else dataset.get_audio(i) for i in mine])
+            out = mesh_mod.host_gather(audio_train.sample(
+                params, cfg, torch.from_numpy(wins).to(device), labels,
+                args.smooth), mesh)[:len(idxs)]
+            if primary:
+                for frame in out.cpu():
+                    save_image(frame, os.path.join(save_path,
+                                                   f"{frame_idx:05d}.png"))
+                    frame_idx += 1
 
+    if not primary:
+        return
     gt_dir = dataset.ds_path if args.cat_video else None
     video = common.write_video(save_path, os.path.join(save_path, "rec.mp4"),
                                fps=args.fps, side_by_side_dir=gt_dir)

@@ -16,6 +16,9 @@ checkpoint), converted by utils/convert.py. Without either the params are a
 seeded random init. `--trace_dir` writes a `torch.profiler` trace of the
 render loop there, with the regions "encoder", "subspace" and "synthesis"
 of each batch named.
+Over several processes (`parallel/distributed.py`) each rank renders
+its share of every batch (the last one padded, as in JAX); the
+primary gathers the frames and alone writes them and the video.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import torch
 
 from ..data.dataset import HeadDataTest
 from ..models.avatar import heads
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import checkpoint as ckpt
 from ..utils import convert, observability
 from ..utils.logging import save_image
@@ -84,29 +89,38 @@ def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
 def main(args) -> None:
     cfg = common.avatar_config(args, tracing=True)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
                            person=args.person, ds_path=args.ds_path,
                            suffix=args.suffix, smooth_sigma=args.smooth_sigma)
     params = load_params(args, cfg, device)
     save_path = os.path.join(args.demo_dir, args.demo_name)
-    os.makedirs(save_path, exist_ok=True)
+    if primary:
+        os.makedirs(save_path, exist_ok=True)
 
-    n, bs = len(dataset), max(args.render_batch, 1)
     frame_idx = 0
-    tracer = observability.trace(args.trace_dir) if args.trace_dir \
-        else contextlib.nullcontext()
+    tracer = observability.trace(args.trace_dir) \
+        if args.trace_dir and primary else contextlib.nullcontext()
     with tracer, torch.inference_mode():
-        for start in range(0, n, bs):
-            items = [dataset[i] for i in range(start, min(start + bs, n))]
+        # each rank loads and renders its rows; the primary writes them all
+        for idxs, mine in common.reenact_batches(len(dataset),
+                                                 args.render_batch, mesh):
+            items = [dataset[i] for i in mine]
             imgs = torch.stack([it[0] for it in items]).to(device)
             labels = torch.stack([it[1] for it in items]).to(device)
-            out = reenact(params, cfg, imgs, labels)
-            for frame in out.cpu():
-                save_image(frame, os.path.join(save_path,
-                                               f"{frame_idx:05d}.png"))
-                frame_idx += 1
+            out = mesh_mod.host_gather(reenact(params, cfg, imgs, labels),
+                                       mesh)[:len(idxs)]
+            if primary:
+                for frame in out.cpu():
+                    save_image(frame, os.path.join(save_path,
+                                                   f"{frame_idx:05d}.png"))
+                    frame_idx += 1
 
+    if not primary:
+        return
     gt_dir = dataset.ds_path if args.cat_video else None
     video = common.write_video(
         save_path, os.path.join(save_path, f"{args.demo_name}"

@@ -8,11 +8,15 @@ hfa_gp_tpu/cli/train_3dmm.py).
 Fits the Weights_3DMM MLP and the W+ subspace (and, from `--tune_iter`
 on, the EG3D generator) to a subject's frames, driven by the per-frame
 expression coefficients of `transforms_{train,test}.json`, with
-L2 + LPIPS, in one process on one device. Writes under
+L2 + LPIPS. Writes under
 `{exp_path}/{exp_name}/`: `log/metrics.jsonl` (with the reference's zero
 `l2_loss_3dmm`) and `log/args.json`, `display/{i}source.png` and
 `{i}recon.png`, and `checkpoint/{i:06d}`. `--resume_ckpt` takes one of
 those checkpoint files and continues from its step.
+Over several processes (`parallel/distributed.py`, e.g. torchrun) each
+rank decodes and trains on its rows of the seed-synced global batch,
+the gradients are averaged over the ranks, and the primary alone
+writes logs, images and checkpoints.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ import dataclasses
 
 import torch
 
-from ..data.dataset import BatchIterator, HeadData3DMM, infinite_batches
+from ..data.dataset import (BatchIterator, HeadData3DMM, infinite_batches,
+                            process_sharded)
 from ..models.avatar import heads
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import checkpoint as ckpt
 from ..train import t3dmm as t3dmm_train
 from ..train.state import init_state
@@ -44,6 +51,9 @@ def main(args) -> None:
     cfg = dataclasses.replace(common.avatar_config(args),
                               params_len=args.params_len)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(args.batch_size)
+    primary = distributed.is_primary()
     dirs = common.make_dirs(args)
     common.save_args(args, dirs)
     root = f"{args.dataset_root}/{args.dataset}"
@@ -53,7 +63,9 @@ def main(args) -> None:
                            person=args.person)
     dataset_test = HeadData3DMM("test", size=args.size, root=root,
                                 person=args.person)
-    loader = infinite_batches(BatchIterator(dataset, args.batch_size))
+    # the seed-synced global order; each rank decodes only its rows
+    loader = infinite_batches(process_sharded(dataset, args.batch_size,
+                                              mesh))
     loader_test = infinite_batches(
         BatchIterator(dataset_test, 1, shuffle=False))
 
@@ -69,7 +81,7 @@ def main(args) -> None:
         args.start_iter = state.step
         print(f"==> resume from iteration {args.start_iter}")
 
-    writer = MetricsWriter(dirs["log"])
+    writer = MetricsWriter(dirs["log"], primary=primary)
     try:
         print("==> training")
         for idx in range(args.iter):
@@ -77,12 +89,12 @@ def main(args) -> None:
             real_image, label, coeffs = (t.to(device) for t in next(loader))
             metrics = t3dmm_train.train_step(state, lpips_params, cfg,
                                              real_image, label, coeffs,
-                                             args.tune_iter)
+                                             args.tune_iter, mesh=mesh)
             writer.scalars(idx, l2_loss=metrics["l2_loss"],
                            lpips_loss=metrics["lpips_loss"],
                            l2_loss_3dmm=metrics["l2_loss_3dmm"])
 
-            if (i + 1) % args.display_freq == 0:
+            if primary and (i + 1) % args.display_freq == 0:
                 print(f"[Iter {i}/{args.iter}] "
                       f"[l2 loss: {float(metrics['l2_loss']):f}] "
                       f"[lpips loss: {float(metrics['lpips_loss']):f}]")

@@ -1,9 +1,12 @@
 """Arcface trainer on the port (counterpart of
 hfa_gp_tpu/cli/train_arcface.py): the synthetic speed benchmark and
-checkpointed training in one CLI, in one process on one device.
+checkpointed training in one CLI, on one rank or several.
 
     python -m hfa_gp_tpu_torch.cli.train_arcface --network iresnet50 \
         --num_classes 1000000 --batch_size 256 --num_steps 20
+    torchrun --nproc_per_node 4 -m hfa_gp_tpu_torch.cli.train_arcface \
+        --device cpu --network iresnet18 --n_model 2 --batch_size 8 \
+        --num_classes 64 --num_steps 2 --fp32
 
   * the backbone: every name of `registry.backbone_names()` and the
     reference's aliases (iresnet18 … 2060 / r18 … r2060, mbf, mbf_large /
@@ -37,9 +40,18 @@ checkpointed training in one CLI, in one process on one device.
     `eval_verification` and `eval_ijb --weights` read), and its FLOPs for
     one image, `{output}/model_cost.json`.
 
+Over several processes (`parallel/distributed.py`: the JAX CLI's flags,
+or torchrun's WORLD_SIZE/RANK), the ranks form a (data, model) mesh,
+`--n_model` of them splitting the class table (`--num_classes` padded to a
+multiple of it, as in JAX) and the rest the global `--batch_size`. Each
+rank makes the global synthetic batch from the step's generator and keeps
+its data index's rows, or, with `--rec`, decodes only those rows. Only the
+primary rank writes `training.log`, the checkpoints (the whole table,
+gathered from the shards, so that a run resumes on any mesh) and the
+`--export`; samples/sec counts the global batch.
+
 It runs on `--device cuda` (the flash-CE kernels) unless told `--device
-cpu`. Not ported, each raises `NotImplementedError`: `--n_model` above 1
-(class sharding) and several processes, with `--rec` or without.
+cpu`.
 """
 
 from __future__ import annotations
@@ -55,6 +67,8 @@ from ..data.dataset import EpochSeededBatches
 from ..data.record_dataset import RecordFaceDataset
 from ..models.arcface import convert, registry
 from ..models.arcface.verification import evaluate_pairs
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..parallel.partial_fc import PartialFC
 from ..train import arcface as arc
 from ..train import checkpoint as ckpt_mod
@@ -86,7 +100,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--margin", type=str, default="arcface",
                    choices=["arcface", "cosface"])
     p.add_argument("--n_model", type=int, default=1,
-                   help="class sharding; only 1 is supported")
+                   help="ranks that split the class table (the mesh's "
+                        "model axis)")
     p.add_argument("--fp32", action="store_true", default=False,
                    help="fp32 backbone and head products (default: bf16)")
     p.add_argument("--device", type=str, default="cuda",
@@ -115,18 +130,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="LFW-style .bin for in-training verification")
     p.add_argument("--verbose", type=int, default=10,
                    help="verification frequency in steps")
-    # the JAX CLI's multi-host flags, accepted for command-line parity
-    common.add_distributed_flags(p)
+    distributed.add_distributed_flags(p)
     return p
-
-
-def check_supported(args) -> None:
-    """Raise on every flag that asks for what the port does not do."""
-    if args.n_model != 1:
-        raise NotImplementedError(
-            f"--n_model > 1{' with --rec' if args.rec else ''}: class "
-            f"sharding over several devices is not ported")
-    common.single_process(args)
 
 
 def synth_batch(batch_size: int, num_classes: int,
@@ -139,11 +144,13 @@ def synth_batch(batch_size: int, num_classes: int,
     return imgs, labs
 
 
-def record_batches(args, device: torch.device):
-    """--rec: batch i of the pack as (images, int64 labels) on `device`;
-    a label outside [0, --num_classes) raises."""
+def record_batches(args, device: torch.device, mesh: mesh_mod.Mesh):
+    """--rec: this rank's rows of batch i of the pack as (images, int64
+    labels) on `device`; a label outside [0, --num_classes) raises."""
     stream = EpochSeededBatches(RecordFaceDataset(args.rec, size=112),
-                                args.batch_size, seed=args.seed)
+                                args.batch_size, seed=args.seed,
+                                num_shards=mesh.n_data,
+                                shard_index=mesh.data_index)
 
     def get(i: int) -> tuple[torch.Tensor, torch.Tensor]:
         imgs, labs = stream.load(i)
@@ -183,21 +190,24 @@ def export_backbone(args, state, out_dir: str) -> str:
 
 
 def main(args) -> float:
-    check_supported(args)
     device = common.device_from_args(args)
-    load_batch = record_batches(args, device) if args.rec else None
-    if args.output:
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(args.batch_size, args.n_model)
+    primary = distributed.is_primary()
+    load_batch = record_batches(args, device, mesh) if args.rec else None
+    if args.output and primary:
         os.makedirs(os.path.abspath(args.output), exist_ok=True)
     logger = init_logging(
-        rank=0, log_file=(os.path.join(args.output, "training.log")
-                          if args.output else None))
+        rank=mesh.rank, log_file=(os.path.join(args.output, "training.log")
+                                  if args.output and primary else None))
     num_classes = args.num_classes
+    if num_classes % mesh.n_model:
+        num_classes += mesh.n_model - num_classes % mesh.n_model
     m2, m3 = (0.5, 0.0) if args.margin == "arcface" else (0.0, 0.4)
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     pfc = PartialFC(num_classes, 512, m2=m2, m3=m3,
                     sample_rate=args.sample_rate,
-                    matmul_dtype=None if args.fp32 else dtype,
-                    n_model=args.n_model)
+                    matmul_dtype=None if args.fp32 else dtype, mesh=mesh)
     wd = args.weight_decay if args.weight_decay is not None \
         else (0.1 if args.optimizer == "adamw" else 5e-4)
     tx, fc_tx = arc.make_optimizers(
@@ -209,20 +219,22 @@ def main(args) -> float:
     ckpt_dir = None
     if args.output:
         ckpt_dir = os.path.join(os.path.abspath(args.output), "checkpoint")
-        os.makedirs(ckpt_dir, exist_ok=True)
+        if primary:
+            os.makedirs(ckpt_dir, exist_ok=True)
 
     state = arc.init_state(torch.Generator().manual_seed(args.seed), pfc,
                            tx, fc_tx, args.network, device)
     start_step = 0
-    if args.resume and ckpt_dir:
-        last = ckpt_mod.latest_step(ckpt_dir)
-        if last is not None:
-            state = ckpt_mod.restore(
-                os.path.join(ckpt_dir, f"{last:06d}"), state)
-            start_step = state.step
-            logger.info("resumed from %s (step %d)", ckpt_dir, start_step)
+    # read once, before any rank writes: every rank takes part in a save,
+    # so every rank must come to the same decision
+    saved = ckpt_mod.latest_step(ckpt_dir) if ckpt_dir else None
+    if args.resume and saved is not None:
+        state = ckpt_mod.restore(os.path.join(ckpt_dir, f"{saved:06d}"),
+                                 state, mesh)
+        start_step = state.step
+        logger.info("resumed from %s (step %d)", ckpt_dir, start_step)
 
-    val = load_bin(args.val_bin) if args.val_bin else None
+    val = load_bin(args.val_bin) if args.val_bin and primary else None
 
     tlog = None
     if args.log_freq:
@@ -241,8 +253,10 @@ def main(args) -> float:
         # the batch and the step's sampling are functions of (seed, step),
         # so a resumed run continues the uninterrupted one exactly
         gen.manual_seed(args.seed * 1_000_003 + i)
+        # every rank makes the global synthetic batch and keeps its rows
         imgs, labs = (load_batch(i) if load_batch else
-                      synth_batch(args.batch_size, num_classes, gen, device))
+                      mesh_mod.process_local_batch(synth_batch(
+                          args.batch_size, num_classes, gen, device), mesh))
         metrics = step(state, imgs, labs, gen)
         if i == start_step:
             # the first step carries first-use costs (the kernels' build,
@@ -261,19 +275,22 @@ def main(args) -> float:
             logger.info("[step %d] verification acc %.4f ± %.4f", i + 1,
                         acc, std)
         if ckpt_dir and args.save_freq and (i + 1) % args.save_freq == 0:
-            path = ckpt_mod.save(state, ckpt_dir)
+            path = ckpt_mod.save(state, ckpt_dir, mesh=mesh)
+            saved = state.step
             logger.info("checkpoint -> %s", path)
     sync()
     dt = time.perf_counter() - t0
 
-    if ckpt_dir and state.step > (ckpt_mod.latest_step(ckpt_dir) or -1):
-        path = ckpt_mod.save(state, ckpt_dir)
+    if ckpt_dir and state.step > (saved if saved is not None else -1):
+        path = ckpt_mod.save(state, ckpt_dir, mesh=mesh)
         logger.info("final checkpoint -> %s", path)
 
     sps = max(timed_steps, 1) * args.batch_size / dt if dt > 0 else 0.0
+    where = (f"mesh {mesh.n_data}x{mesh.n_model}, " if mesh.size > 1
+             else "")
     print(f"samples/sec: {sps:.1f}  (loss {float(metrics['loss']):.4f}, "
-          f"classes {num_classes}, sample_rate {args.sample_rate})")
-    if args.export and args.output:
+          f"{where}classes {num_classes}, sample_rate {args.sample_rate})")
+    if args.export and args.output and primary:
         path = export_backbone(args, state, os.path.abspath(args.output))
         logger.info("exported backbone -> %s", path)
     return sps

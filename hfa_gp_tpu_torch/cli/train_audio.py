@@ -7,13 +7,17 @@ hfa_gp_tpu/cli/train_audio.py).
 
 Fits AudioNet, the Weights_3DMM MLP and the W+ subspace (and, from
 `--tune_iter` on, the EG3D generator) to a subject's frames, driven by
-the DeepSpeech features of `aud.npy`, in one process on one device.
+the DeepSpeech features of `aud.npy`.
 Before `--nosmo_iters` each frame is driven by its own 16 × 29 window;
 from it on by the smo_size windows around it, smoothed by AudioAttNet,
 whose optimizer starts afresh at the switch. Writes under
 `{exp_path}/{exp_name}/`: `log/metrics.jsonl`, `log/args.json`,
 `display/{i}source.png` and `checkpoint/{i:06d}`. `--resume_ckpt` takes
 one of those checkpoint files and continues from its step.
+Over several processes (`parallel/distributed.py`, e.g. torchrun) each
+rank decodes and trains on its rows of the seed-synced global batch,
+the gradients are averaged over the ranks, and the primary alone
+writes logs, images and checkpoints.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..data.dataset import BatchIterator, HeadDataAudio, infinite_batches
+from ..data.dataset import HeadDataAudio, infinite_batches, process_sharded
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import audio as audio_train
 from ..train import checkpoint as ckpt
 from ..train.state import init_state
@@ -64,6 +70,9 @@ def main(args) -> None:
                               dim_aud=args.dim_aud, win_size=args.win_size,
                               smo_size=args.smo_size)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(args.batch_size)
+    primary = distributed.is_primary()
     dirs = common.make_dirs(args)
     common.save_args(args, dirs)
     root = f"{args.dataset_root}/{args.dataset}"
@@ -72,8 +81,9 @@ def main(args) -> None:
     dataset = HeadDataAudio("train", size=args.size, root=root,
                             person=args.person, smo_size=args.smo_size)
     # index batches, so that each step reads the windows its phase needs
-    idx_iter = infinite_batches(BatchIterator(_Indices(len(dataset)),
-                                              args.batch_size))
+    # (each rank's rows of the seed-synced global batches)
+    idx_iter = infinite_batches(process_sharded(_Indices(len(dataset)),
+                                                args.batch_size, mesh))
 
     print("==> initializing trainer")
     params = audio_train.init_audio_params(
@@ -91,7 +101,7 @@ def main(args) -> None:
     # saved after the last plain step, before the switch has reset the
     # AudioAttNet's optimizer
     was_smooth = args.start_iter > args.nosmo_iters
-    writer = MetricsWriter(dirs["log"])
+    writer = MetricsWriter(dirs["log"], primary=primary)
     try:
         print("==> training")
         for idx in range(args.iter):
@@ -110,11 +120,12 @@ def main(args) -> None:
                              else dataset.get_audio(j) for j in ids])
             metrics = audio_train.train_step(
                 state, lpips_params, cfg, imgs, labels,
-                torch.from_numpy(wins).to(device), smooth, args.tune_iter)
+                torch.from_numpy(wins).to(device), smooth, args.tune_iter,
+                mesh=mesh)
             writer.scalars(idx, l2_loss=metrics["l2_loss"],
                            lpips_loss=metrics["lpips_loss"])
 
-            if (i + 1) % args.display_freq == 0:
+            if primary and (i + 1) % args.display_freq == 0:
                 print(f"[Iter {i}/{args.iter}] "
                       f"[l2 loss: {float(metrics['l2_loss']):f}] "
                       f"[lpips loss: {float(metrics['lpips_loss']):f}]")

@@ -6,14 +6,18 @@ hfa_gp_tpu/cli/train_rgb.py).
         --exp_path ./exps/ --exp_name v1
 
 Fits the encoder and the W+ subspace (and, from `--tune_iter` on, the EG3D
-generator) to a subject's training frames with L2 + LPIPS, in one process
-on one device. Writes under `{exp_path}/{exp_name}/`: `log/metrics.jsonl`
-and `log/args.json`, `display/{i}source.png` and `{i}recon.png`,
-`bases/{b}person_1.png`, and `checkpoint/{i:06d}`. `--resume_ckpt` takes
+generator) to a subject's training frames with L2 + LPIPS. Writes under
+`{exp_path}/{exp_name}/`: `log/metrics.jsonl` and `log/args.json`,
+`display/{i}source.png` and `{i}recon.png`, `bases/{b}person_1.png`, and
+`checkpoint/{i:06d}`. `--resume_ckpt` takes
 one of those checkpoint files and continues from its step. `--person_2`
 adds a second person's subspace (from PTI pivots with `--init --run_id_2`),
 which the RGB loss does not reach, so it is saved as it was initialised,
 as in the JAX package.
+Over several processes (`parallel/distributed.py`, e.g. torchrun) each
+rank decodes and trains on its rows of the seed-synced global batch,
+the gradients are averaged over the ranks, and the primary alone
+writes logs, images and checkpoints.
 """
 
 from __future__ import annotations
@@ -22,8 +26,11 @@ import argparse
 
 import torch
 
-from ..data.dataset import BatchIterator, HeadData, infinite_batches
+from ..data.dataset import (BatchIterator, HeadData, infinite_batches,
+                            process_sharded)
 from ..models.avatar import heads
+from ..parallel import distributed
+from ..parallel import mesh as mesh_mod
 from ..train import checkpoint as ckpt
 from ..train import rgb as rgb_train
 from ..train.state import init_state
@@ -42,6 +49,9 @@ def build_argparser() -> argparse.ArgumentParser:
 def main(args) -> None:
     cfg = common.avatar_config(args)
     device = common.device_from_args(args)
+    distributed.maybe_initialize(args, device)
+    mesh = mesh_mod.make_mesh_for_batch(args.batch_size)
+    primary = distributed.is_primary()
     dirs = common.make_dirs(args)
     common.save_args(args, dirs)
     root = f"{args.dataset_root}/{args.dataset}"
@@ -51,7 +61,9 @@ def main(args) -> None:
                        person=args.person)
     dataset_test = HeadData("test", size=args.size, root=root,
                             person=args.person)
-    loader = infinite_batches(BatchIterator(dataset, args.batch_size))
+    # the seed-synced global order; each rank decodes only its rows
+    loader = infinite_batches(process_sharded(dataset, args.batch_size,
+                                              mesh))
     loader_test = infinite_batches(
         BatchIterator(dataset_test, 1, shuffle=False))
 
@@ -68,18 +80,19 @@ def main(args) -> None:
         args.start_iter = state.step
         print(f"==> resume from iteration {args.start_iter}")
 
-    writer = MetricsWriter(dirs["log"])
+    writer = MetricsWriter(dirs["log"], primary=primary)
     try:
         print("==> training")
         for idx in range(args.iter):
             i = idx + args.start_iter
             real_image, label = (t.to(device) for t in next(loader))
             metrics = rgb_train.train_step(state, lpips_params, cfg,
-                                           real_image, label, args.tune_iter)
+                                           real_image, label, args.tune_iter,
+                                           mesh=mesh)
             writer.scalars(idx, l2_loss=metrics["l2_loss"],
                            lpips_loss=metrics["lpips_loss"])
 
-            if (i + 1) % args.display_freq == 0:
+            if primary and (i + 1) % args.display_freq == 0:
                 print(f"[Iter {i}/{args.iter}] "
                       f"[l2 loss: {float(metrics['l2_loss']):f}] "
                       f"[lpips loss: {float(metrics['lpips_loss']):f}]")

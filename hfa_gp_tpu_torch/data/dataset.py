@@ -195,24 +195,42 @@ class BatchIterator:
     """Epoch batcher → stacked tensors; a last partial batch is dropped.
     The index permutation comes from numpy's `default_rng(seed)`, one draw
     per epoch, so the batches equal the JAX package's `BatchIterator`
-    index for index. One process only: the port has no sharded reader."""
+    index for index. With `num_shards` > 1 every rank draws the same global
+    order and loads only its `batch_size / num_shards` rows (shard
+    `shard_index`) of each global batch: no rank decodes the rows of
+    another."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, num_shards: int = 1, shard_index: int = 0):
+        if batch_size % num_shards or not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards} does not "
+                             f"divide a batch of {batch_size}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.default_rng(seed)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
 
     def __iter__(self) -> Iterator[tuple[torch.Tensor, ...]]:
         n, bs = len(self.dataset), self.batch_size
         order = self.rng.permutation(n) if self.shuffle else np.arange(n)
+        local = bs // self.num_shards
         for i in range(0, (n // bs) * bs, bs):
-            items = [self.dataset[int(j)] for j in order[i:i + bs]]
+            idxs = order[i:i + bs][self.shard_index * local:
+                                   (self.shard_index + 1) * local]
+            items = [self.dataset[int(j)] for j in idxs]
             yield tuple(torch.stack(col) for col in zip(*items))
 
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
+
+
+def process_sharded(dataset, batch_size: int, mesh, **kw) -> BatchIterator:
+    """A BatchIterator that loads only this rank's rows of every global
+    batch: the rows of its data index on `mesh` (a `parallel.mesh.Mesh`)."""
+    return BatchIterator(dataset, batch_size, num_shards=mesh.n_data,
+                         shard_index=mesh.data_index, **kw)
 
 
 def infinite_batches(loader: BatchIterator) -> Iterator:

@@ -1,5 +1,5 @@
 """PartialFC: the margin-softmax classifier over a table of class centres
-(port of hfa_gp_tpu/parallel/partial_fc.py to one device).
+(port of hfa_gp_tpu/parallel/partial_fc.py).
 
   * `combined_margin` and its ArcFace / CosFace forms are plain functions;
   * the softmax cross-entropy never materialises the (B, classes) logits on
@@ -9,14 +9,14 @@
   * `sample_rate < 1` keeps every positive class centre and random
     negatives each step; the trainer then differentiates with respect to
     the gathered rows only (`loss_sampled`), so no table-sized gradient
-    exists.
-
-The JAX package shards the table over a 'model' mesh axis and joins the
-shards' statistics with pmax / psum. This port runs one shard:
-`n_model > 1` raises. `_margin_softmax_ce` keeps the per-shard structure
-(`local_max`, `gmax`, the floored `denom`, `valid`) with the collectives
-written as the identities they are on one shard, so that class sharding
-over `torch.distributed` can put them back in place.
+    exists;
+  * over a `parallel.mesh.Mesh` of several ranks the table is sharded over
+    the model axis: each rank holds the num_classes / n_model rows of its
+    model index, the batch is gathered over the data axis (each rank
+    passes its own rows), and the shards' statistics are joined with a max
+    and a sum over the model axis (`mesh.max_model`, `mesh.sum_model`),
+    whose backwards are written for a loss that every rank holds whole.
+    The kernels run on the shard's rows with the global batch, unchanged.
 
 The JAX package's blockwise statistics (`_make_blockwise_stats`) work
 around the TPU's memory traffic; the kernel takes their place here.
@@ -29,6 +29,7 @@ import math
 import torch
 
 from ..core.kernels import flash_ce
+from . import mesh as mesh_mod
 
 # ---------------------------------------------------------------------------
 # Margin losses (CombinedMarginLoss: m1·θ + m2 margin, −m3 offset)
@@ -105,7 +106,7 @@ def _ce_stats_direct(norm_emb: torch.Tensor, w_used: torch.Tensor,
 def _margin_softmax_ce(emb: torch.Tensor, w_used: torch.Tensor,
                        local_lab: torch.Tensor, s: float, m1: float,
                        m2: float, m3: float, mm_dtype=None,
-                       direct: bool = False) -> torch.Tensor:
+                       direct: bool = False, mesh=None) -> torch.Tensor:
     """emb (B, d) the batch, w_used (rows, d) this shard's class centres
     (all of them or the sampled ones), local_lab (B,) the column of each
     row's positive in w_used or −1. Margin on the target column, then the
@@ -117,7 +118,10 @@ def _margin_softmax_ce(emb: torch.Tensor, w_used: torch.Tensor,
 
     The statistics come from `flash_ce.flash_ce_stats`: the kernels on
     CUDA tensors, their plain version on CPU tensors. `direct=True` takes
-    `_ce_stats_direct` instead (the reference the tests hold both to)."""
+    `_ce_stats_direct` instead (the reference the tests hold both to).
+
+    mesh: the `parallel.mesh.Mesh` whose model axis shards the classes
+    (None: one shard). emb is then the global batch on every rank."""
     norm_emb = emb / torch.linalg.vector_norm(emb, dim=1, keepdim=True)
     b = norm_emb.shape[0]
     has_target = local_lab >= 0
@@ -138,15 +142,18 @@ def _margin_softmax_ce(emb: torch.Tensor, w_used: torch.Tensor,
         local_max = torch.full((b,), float(s), dtype=torch.float32,
                                device=emb.device)
 
-    # one shard: pmax and psum over the model axis are identities
-    gmax = local_max
-    denom = se * torch.exp(local_max - gmax)
+    # the kernels' shift is s on every shard: the max over the model axis
+    # is only needed on the direct route
+    gmax = local_max if not direct else mesh_mod.max_model(local_max, mesh)
     # the fixed shift can underflow se to exactly 0 when every cosine sits
-    # below about 1 − 87/s; floor the denominator so log() stays finite
+    # below about 1 − 87/s; floor the denominator so log() stays finite.
+    # The three sums over the model axis go as one
+    terms = torch.stack([
+        se * torch.exp(local_max - gmax),
+        torch.where(has_target, tgt_logit - gmax, torch.zeros_like(tgt_logit)),
+        has_target.to(torch.float32)])
+    denom, tgt_term, valid = mesh_mod.sum_model(terms, mesh)
     denom = torch.clamp(denom, min=1e-30)
-    tgt_term = torch.where(has_target, tgt_logit - gmax,
-                           torch.zeros_like(tgt_logit))
-    valid = has_target.to(torch.float32)
     per_sample = (torch.log(denom) - tgt_term) * torch.clamp(valid, max=1.0)
     n_valid = torch.clamp(torch.clamp(valid, max=1.0).sum(), min=1.0)
     return per_sample.sum() / n_valid
@@ -201,19 +208,38 @@ def _remap_to_sampled(local_lab: torch.Tensor, index: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
+def _shard_generator(generator: torch.Generator, shard: int,
+                     n_model: int) -> torch.Generator:
+    """The sampling generator of one class shard: the step's own with one
+    shard, else one seeded from (the step's seed, shard index), as JAX's
+    fold_in(key, shard_idx), so that every rank of a shard samples alike
+    and the shards differently."""
+    if n_model == 1:
+        return generator
+    seed = (generator.initial_seed() * 65_537 + 1 + shard) % 2 ** 63
+    return torch.Generator(generator.device).manual_seed(seed)
+
+
 class PartialFC:
-    """Margin softmax over `weight` (num_classes, embedding_dim) on one
-    device; labels are int (B,), −1 = no positive class."""
+    """Margin softmax over a table of (num_classes, embedding_dim) class
+    centres; labels are int (B,), −1 = no positive class.
+
+    On a `mesh` with a model axis of n_model, `num_classes` must divide
+    (the CLI pads it, as JAX's does) and the rank holds the rows of its
+    model index (`init`); `loss` and `loss_sampled` take the rank's rows of
+    the batch and return the loss of the global batch on every rank."""
 
     def __init__(self, num_classes: int, embedding_dim: int = 512, *,
                  s: float = 64.0, m1: float = 1.0, m2: float = 0.5,
                  m3: float = 0.0, sample_rate: float = 1.0,
-                 matmul_dtype=None, n_model: int = 1):
-        if n_model != 1:
-            raise NotImplementedError(
-                "n_model > 1: class sharding over several devices is not "
-                "ported")
+                 matmul_dtype=None, mesh: mesh_mod.Mesh | None = None):
+        n_model = mesh.n_model if mesh is not None else 1
+        if num_classes % n_model:
+            raise ValueError(f"num_classes {num_classes}: pad it to a "
+                             f"multiple of the model axis ({n_model})")
+        self.mesh = mesh
         self.n_model = n_model
+        self.shard = mesh.model_index if mesh is not None else 0
         self.num_classes = num_classes
         self.num_local = num_classes // n_model
         self.embedding_dim = embedding_dim
@@ -225,27 +251,40 @@ class PartialFC:
     def init(self, generator: torch.Generator,
              device: torch.device | str = "cpu") -> torch.Tensor:
         """N(0, 0.01²) class centres, made on `device` by a generator of
-        that device."""
-        return torch.randn((self.num_classes, self.embedding_dim),
-                           generator=generator, device=device,
-                           dtype=torch.float32) * 0.01
+        that device: this rank's rows of the one seeded table, so that the
+        table does not depend on the mesh. The whole table is drawn once
+        and dropped after the shard's rows are copied out."""
+        table = torch.randn((self.num_classes, self.embedding_dim),
+                            generator=generator, device=device,
+                            dtype=torch.float32)
+        if self.n_model > 1:
+            lo = self.shard * self.num_local
+            table = table[lo:lo + self.num_local].clone()
+        return table.mul_(0.01)
+
+    def _local_labels(self, labels: torch.Tensor) -> torch.Tensor:
+        """The global batch's labels as this shard's columns."""
+        lab = mesh_mod.gather_data(labels, self.mesh)
+        return _shard_local_labels(lab, self.shard, self.num_local)
 
     # -- sparse sampling (gradients only ever touch sampled rows) -----------
 
     def sample_indices(self, labels: torch.Tensor,
                        generator: torch.Generator) -> torch.Tensor:
-        """Sorted sampled class indices (int64): all positives and random
-        negatives. Computed outside the loss so that the train step can
-        gather the sub-weight first and differentiate with respect to
-        that: only the (num_sample, d) sub-gradient ever exists."""
-        local_lab = _shard_local_labels(labels, 0, self.num_local)
-        return _sample_shard_indices(local_lab, generator, self.num_local,
-                                     self.num_sample)
+        """Sorted sampled class indices (int64) of this rank's shard: all
+        positives of the global batch and random negatives. Computed
+        outside the loss so that the train step can gather the sub-weight
+        first and differentiate with respect to that: only the
+        (num_sample, d) sub-gradient ever exists."""
+        return _sample_shard_indices(
+            self._local_labels(labels),
+            _shard_generator(generator, self.shard, self.n_model),
+            self.num_local, self.num_sample)
 
     def take_rows(self, table: torch.Tensor, index: torch.Tensor
                   ) -> torch.Tensor:
-        """Row gather: table (num_classes, d), index from sample_indices
-        → (num_sample, d)."""
+        """Row gather: the shard's table (num_local, d), index from
+        sample_indices → (num_sample, d)."""
         return table[index]
 
     def put_rows(self, table: torch.Tensor, index: torch.Tensor,
@@ -263,31 +302,35 @@ class PartialFC:
         """Margin-softmax CE against a pre-gathered sampled sub-weight
         (take_rows(weight, sample_indices(...))). Differentiable with
         respect to w_sub, the only weight gradient that ever exists."""
-        local_lab = _shard_local_labels(labels, 0, self.num_local)
-        local_lab = _remap_to_sampled(local_lab, index)
-        return _margin_softmax_ce(embeddings, w_sub, local_lab, self.s,
-                                  self.m1, self.m2, self.m3,
-                                  self.matmul_dtype)
+        local_lab = _remap_to_sampled(self._local_labels(labels), index)
+        return _margin_softmax_ce(
+            mesh_mod.gather_data(embeddings, self.mesh), w_sub, local_lab,
+            self.s, self.m1, self.m2, self.m3, self.matmul_dtype,
+            mesh=self.mesh)
 
     # -- the loss -----------------------------------------------------------
 
     def loss(self, weight: torch.Tensor, embeddings: torch.Tensor,
              labels: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
-        """Mean margin-softmax CE over the rows that have a positive."""
-        local_lab = _shard_local_labels(labels, 0, self.num_local)
+        """Mean margin-softmax CE over the rows that have a positive;
+        `weight` is the shard's rows of the table."""
+        local_lab = self._local_labels(labels)
         if self.sample_rate < 1.0:
             if generator is None:
                 raise ValueError(
                     "PartialFC.loss with sample_rate < 1 needs a generator "
                     "that advances every step: a fixed one would train "
                     "against the same negative subset forever")
-            index = _sample_shard_indices(local_lab, generator,
-                                          self.num_local, self.num_sample)
+            index = _sample_shard_indices(
+                local_lab, _shard_generator(generator, self.shard,
+                                            self.n_model),
+                self.num_local, self.num_sample)
             w_used = weight[index]
             local_lab = _remap_to_sampled(local_lab, index)
         else:
             w_used = weight
-        return _margin_softmax_ce(embeddings, w_used, local_lab, self.s,
-                                  self.m1, self.m2, self.m3,
-                                  self.matmul_dtype)
+        return _margin_softmax_ce(
+            mesh_mod.gather_data(embeddings, self.mesh), w_used, local_lab,
+            self.s, self.m1, self.m2, self.m3, self.matmul_dtype,
+            mesh=self.mesh)

@@ -1,8 +1,9 @@
 """Face-recognition trainer: a backbone (iresnet, MobileFaceNet or ViT)
-under a PartialFC head (port of hfa_gp_tpu/train/arcface.py to one
-device). The backbone's trunk runs in fp32 or bf16 (`make_train_step`'s
-`dtype`, the JAX package's AMP analog); its parameters, gradients and
-optimizer state stay fp32.
+under a PartialFC head (port of hfa_gp_tpu/train/arcface.py), on one rank
+or on the (data, model) mesh of the PartialFC's `mesh`. The backbone's
+trunk runs in fp32 or bf16 (`make_train_step`'s `dtype`, the JAX
+package's AMP analog); its parameters, gradients and optimizer state stay
+fp32.
 
 SGD (momentum 0.9, weight decay 5e-4) or AdamW with the poly schedule and
 the margin softmax. The backbone's optimizer is `torch.optim.SGD` /
@@ -20,20 +21,31 @@ head's optimizer is written out, because it has two forms:
     rows keep their buffers as they were; AdamW's bias correction uses the
     global step count.
 
+On a mesh, each rank passes its data index's rows of the global batch;
+BatchNorm takes the global batch's statistics (`norm.synced`); the loss is
+the global batch's on every rank, and each rank's backbone gradient is the
+derivative of that loss through its own rows, so the gradients are summed
+over the data axis (as one all-reduce over every rank, divided by n_model,
+so that every rank ends with the same bits) before the clip and the
+update. The head's update touches only the rank's shard of the table and
+of its buffers.
+
 State is updated in place (the JAX package returns new state and donates
 the old).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 from torch import nn
 
-from ..models.arcface import registry
+from ..models.arcface import norm, registry
 from ..models.arcface.scheduler import poly_scheduler
+from ..parallel import mesh as mesh_mod
 from ..parallel.partial_fc import PartialFC
 
 
@@ -41,7 +53,7 @@ from ..parallel.partial_fc import PartialFC
 class ArcFaceState:
     backbone: nn.Module             # a `ParamTree`
     batch_stats: nn.Module          # a `ParamTree` of BN running moments
-    fc_weight: torch.Tensor         # (num_classes, d)
+    fc_weight: torch.Tensor         # (num_classes / n_model, d): the shard
     optimizer: torch.optim.Optimizer
     fc_opt_state: dict[str, torch.Tensor] = field(default_factory=dict)
     step: int = 0
@@ -166,7 +178,8 @@ def init_state(generator: torch.Generator, pfc: PartialFC,
     """Seeded state on `device`. The backbone is drawn from `generator`
     (a CPU generator) and moved; the table is drawn on `device` from a
     generator seeded by it, so that a 3,000,000-row table never crosses
-    the host link."""
+    the host link. On a mesh every rank draws the same backbone and keeps
+    its shard of the same table."""
     backbone, stats = registry.init_backbone(generator, network,
                                              pfc.embedding_dim, device)
     backbone.requires_grad_(True)
@@ -220,17 +233,29 @@ def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
     to the gathered (num_sample, d) sub-weight and steps only those rows
     and their buffer rows, so the head's peak memory is table + buffers +
     the sampled rows' working set. `index` replaces the sampled class
-    indices (the tests inject another package's)."""
+    indices (the tests inject another package's).
+
+    On `pfc.mesh`, images and labels are the rank's rows of the global
+    batch, and `index` the rank's shard's sampled indices."""
     sparse = pfc.sample_rate < 1.0
+    mesh = pfc.mesh if pfc.mesh is not None else mesh_mod.Mesh()
+
+    def bn_sync():
+        if mesh.n_data == 1:
+            return contextlib.nullcontext()
+        return norm.synced(mesh)
+
+    join = mesh_mod.world_group() if mesh.size > 1 else None
 
     def step_fn(state: ArcFaceState, images: torch.Tensor,
                 labels: torch.Tensor,
                 generator: torch.Generator | None = None,
                 index: torch.Tensor | None = None) -> dict[str, Any]:
         state.optimizer.zero_grad(set_to_none=True)
-        emb, new_stats = registry.backbone_apply(
-            network, state.backbone, state.batch_stats, images, train=True,
-            dtype=dtype, generator=generator)
+        with bn_sync():
+            emb, new_stats = registry.backbone_apply(
+                network, state.backbone, state.batch_stats, images,
+                train=True, dtype=dtype, generator=generator)
         if sparse:
             if index is None:
                 index = pfc.sample_indices(labels, generator)
@@ -240,6 +265,8 @@ def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
             head = state.fc_weight.detach().requires_grad_(True)
             loss = pfc.loss(head, emb, labels)
         loss.backward()
+        # the data axis's parts of the backbone's gradient, before the clip
+        mesh_mod.join_grads(state.backbone, join, 1.0 / mesh.n_model)
 
         tx.step(state.optimizer, state.step)
         update_head(pfc, fc_tx, state, head, index if sparse else None)

@@ -23,6 +23,7 @@ from ..core import ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import audio as aud
 from ..models.avatar import heads
+from ..parallel import mesh as mesh_mod
 from ..utils.convert import ParamTree
 from .state import TrainState, apply_generator_freeze
 
@@ -79,7 +80,8 @@ def reset_audattnet_opt(state: TrainState) -> None:
 def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                real_image: torch.Tensor, label: torch.Tensor,
                aud_window: torch.Tensor, smooth: bool, tune_iter: int, *,
-               label_convention: str = "opencv") -> dict[str, torch.Tensor]:
+               label_convention: str = "opencv",
+               mesh=None) -> dict[str, torch.Tensor]:
     """One Adam step of the phase `smooth` in place on `state`; the freeze
     gate applies to the model's generator. Returns the loss terms as
     detached 0-d tensors."""
@@ -92,11 +94,12 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     apply_generator_freeze(state.params["model"], state.step, tune_iter)
+    metrics = mesh_mod.data_parallel_step(state.params, {
+        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach(), "l2_loss_3dmm": torch.zeros(()),
-            "l2_loss": aux["l2_loss"].detach(),
-            "lpips_loss": aux["lpips_loss"].detach()}
+    return {"l2_loss_3dmm": torch.zeros(()), **metrics}
 
 
 def sample(params, cfg: heads.AvatarConfig, aud_window: torch.Tensor,

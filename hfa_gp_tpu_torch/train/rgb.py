@@ -1,8 +1,10 @@
 """RGB-driven training (port of hfa_gp_tpu/train/rgb.py).
 
-Loss = L2 + LPIPS on the 512 → size average-pooled render. One process,
-one device: eager PyTorch, gradients by autograd through the sampler's and
+Loss = L2 + LPIPS on the 512 → size average-pooled render. Eager
+PyTorch, gradients by autograd through the sampler's and
 the marcher's CUDA kernels.
+With a mesh, `train_step` averages the gradients and loss terms over
+its data axis (`mesh.data_parallel_step`).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from ..core import camera as cam
 from ..core import ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
+from ..parallel import mesh as mesh_mod
 from .state import TrainState, apply_generator_freeze
 
 
@@ -35,7 +38,7 @@ def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
 
 def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                real_image: torch.Tensor, label: torch.Tensor,
-               tune_iter: int, *, label_convention: str = "opencv"
+               tune_iter: int, *, label_convention: str = "opencv", mesh=None
                ) -> dict[str, torch.Tensor]:
     """One Adam step in place on `state`; returns the step's loss terms as
     detached 0-d tensors (no host sync here)."""
@@ -44,10 +47,12 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                         label_convention=label_convention)
     loss.backward()
     apply_generator_freeze(state.params, state.step, tune_iter)
+    metrics = mesh_mod.data_parallel_step(state.params, {
+        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
-            "lpips_loss": aux["lpips_loss"].detach()}
+    return metrics
 
 
 def sample(params, cfg: heads.AvatarConfig, real_image: torch.Tensor,

@@ -12,6 +12,7 @@ import torch
 from ..core import ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
+from ..parallel import mesh as mesh_mod
 from .state import TrainState, apply_generator_freeze
 
 
@@ -31,7 +32,8 @@ def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
 def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                real_image: torch.Tensor, label: torch.Tensor,
                coeffs: torch.Tensor, tune_iter: int, *,
-               label_convention: str = "opencv") -> dict[str, torch.Tensor]:
+               label_convention: str = "opencv",
+               mesh=None) -> dict[str, torch.Tensor]:
     """One Adam step in place on `state`, the generator frozen while
     step < tune_iter; returns the step's loss terms as detached 0-d
     tensors."""
@@ -40,11 +42,12 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                         coeffs, label_convention=label_convention)
     loss.backward()
     apply_generator_freeze(state.params, state.step, tune_iter)
+    metrics = mesh_mod.data_parallel_step(state.params, {
+        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
     state.optimizer.step()
     state.step += 1
-    return {"loss": loss.detach(), "l2_loss_3dmm": torch.zeros(()),
-            "l2_loss": aux["l2_loss"].detach(),
-            "lpips_loss": aux["lpips_loss"].detach()}
+    return {"l2_loss_3dmm": torch.zeros(()), **metrics}
 
 
 def sample(params, cfg: heads.AvatarConfig, coeffs: torch.Tensor,

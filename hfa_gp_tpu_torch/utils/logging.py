@@ -48,12 +48,16 @@ def display_image(img: torch.Tensor | np.ndarray, path: str) -> None:
 
 class MetricsWriter:
     """Scalars to `{log_dir}/metrics.jsonl` (one JSON object a call), and
-    scalars and images to TensorBoard where it is installed."""
+    scalars and images to TensorBoard where it is installed. With
+    `primary=False` (a rank other than 0) every method does nothing."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, primary: bool = True):
+        self._primary = primary
+        self._tb = None
+        if not primary:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        self._tb = None
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -61,6 +65,8 @@ class MetricsWriter:
         self._tb = SummaryWriter(log_dir)
 
     def scalars(self, step: int, **values: float) -> None:
+        if not self._primary:
+            return
         vals = {k: float(v) for k, v in values.items()}
         self._jsonl.write(json.dumps(
             {"step": int(step), "time": time.time(), **vals}) + "\n")
@@ -78,6 +84,8 @@ class MetricsWriter:
                                .transpose(2, 0, 1), int(step))
 
     def close(self) -> None:
+        if not self._primary:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

@@ -511,21 +511,48 @@ def test_checkpoint_round_trip_of_an_arcface_state(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (("--fp32", "--rec", "x.rec", "--n_model", "2"), "--rec"),
-    (("--fp32", "--n_model", "2"), "--n_model"),
-    (("--fp32", "--num_processes", "2"), "several processes")])
+    (("--fp32", "--rec", "x.rec", "--n_model", "2"), "needs 2 ranks"),
+    (("--fp32", "--n_model", "2"), "needs 2 ranks"),
+    (("--fp32", "--num_processes", "2"), None)])
 def test_cli_refuses_what_is_not_ported(flags, match):
+    """--n_model 2 in a world of one rank raises, as JAX's make_mesh
+    asserts (before --rec opens its file); --num_processes without a
+    coordinator is one process, as in JAX."""
     args = train_arcface.build_argparser().parse_args(
         ["--device", "cpu", "--num_classes", "8", "--batch_size", "2",
-         "--num_steps", "1", *flags])
-    with pytest.raises(NotImplementedError, match=match):
+         "--num_steps", "1", "--network", "iresnet18", *flags])
+    if match is None:
+        assert train_arcface.main(args) >= 0.0
+        return
+    with pytest.raises(ValueError, match=match):
         train_arcface.main(args)
 
 
+def _free_port() -> str:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return str(s.getsockname()[1])
+
+
 def test_cli_refuses_several_processes(monkeypatch):
+    """WORLD_SIZE > 1 joins a process group; with no other rank the
+    rendezvous fails within distributed.TIMEOUT instead of waiting."""
+    import datetime
+    import time
+
+    from hfa_gp_tpu_torch.parallel import distributed
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="WORLD_SIZE"):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", _free_port())
+    monkeypatch.setattr(distributed, "TIMEOUT",
+                        datetime.timedelta(seconds=2))
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="clients"):
         train_arcface.main(_args("--num_steps", "1"))
+    assert time.perf_counter() - t0 < 60
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_defaults_are_the_jax_clis():

@@ -261,5 +261,12 @@ def test_sampled_loss_runs_and_refusals():
     assert 8 <= int((gw.abs().sum(1) > 0).sum()) <= pfc.num_sample
     with pytest.raises(ValueError, match="generator"):
         pfc.loss(w_t, e_t, torch.from_numpy(lab))
-    with pytest.raises(NotImplementedError, match="n_model"):
+    # the shards are a mesh's model axis, which must divide the class
+    # count (the CLI pads it, as JAX's does)
+    from hfa_gp_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(TypeError, match="n_model"):
         tpfc.PartialFC(64, 16, n_model=2)
+    with pytest.raises(ValueError, match="pad it"):
+        tpfc.PartialFC(65, 16, mesh=Mesh(n_data=1, n_model=2, rank=1))
+    sharded = tpfc.PartialFC(64, 16, mesh=Mesh(n_data=1, n_model=2, rank=1))
+    assert (sharded.shard, sharded.num_local) == (1, 32)

@@ -264,6 +264,22 @@ def test_train_rgb_cli_resume_and_reenact(small_cli_config, dataset_root,
 def test_train_rgb_refuses_more_than_one_process(small_cli_config,
                                                  dataset_root, tmp_path,
                                                  monkeypatch):
+    """WORLD_SIZE > 1 joins a process group: with no other rank the
+    rendezvous fails within distributed.TIMEOUT, and nothing is trained."""
+    import datetime
+    import socket
+
+    from hfa_gp_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", port)
+    monkeypatch.setattr(distributed, "TIMEOUT",
+                        datetime.timedelta(seconds=2))
+    with pytest.raises(RuntimeError, match="clients"):
         train_rgb.main(_train_args(dataset_root, str(tmp_path), "--iter", "1"))
+    assert not torch.distributed.is_initialized()
+    assert not os.listdir(tmp_path)

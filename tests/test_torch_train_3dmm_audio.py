@@ -438,8 +438,14 @@ def test_avatar_clis_take_the_reference_command_line(cli, monkeypatch,
                                                      tmp_path):
     """The reference's flags parse (--addr and --port are ignored); the
     second person's flags reach the config (they raised before the
-    subspace was ported); more than one process raises, in `main`, before
-    anything is written."""
+    subspace was ported); several processes are joined in `main` after the
+    device is set up, before anything is written: without a card
+    (`--device cuda`, the default) it stops at the device, and without a
+    peer the rendezvous fails within distributed.TIMEOUT."""
+    import datetime
+    import socket
+
+    from hfa_gp_tpu_torch.parallel import distributed
     monkeypatch.chdir(tmp_path)
     args = cli.build_argparser().parse_args(REFERENCE_LINE)
     assert (args.addr, args.port, args.run_id) == ("localhost", "12345", "x")
@@ -447,12 +453,22 @@ def test_avatar_clis_take_the_reference_command_line(cli, monkeypatch,
     cfg = common.avatar_config(cli.build_argparser().parse_args(
         REFERENCE_LINE + ["--person_2", "p", "--same_bases", "--init"]))
     assert cfg.person_2 and cfg.same_bases
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for extra in (["--num_processes", "2"],
                   ["--coordinator_address", "localhost:1234"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
             cli.main(cli.build_argparser().parse_args(REFERENCE_LINE
                                                       + extra))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError):
-        cli.main(args)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", port)
+    monkeypatch.setattr(distributed, "TIMEOUT",
+                        datetime.timedelta(seconds=2))
+    with pytest.raises(RuntimeError, match="clients"):
+        cli.main(cli.build_argparser().parse_args(REFERENCE_LINE
+                                                  + ["--device", "cpu"]))
+    assert not torch.distributed.is_initialized()
     assert os.listdir(tmp_path) == []
