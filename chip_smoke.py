@@ -164,22 +164,26 @@ result line:
  35. several processes on the one card (each multi-rank run is this script
      started as ranks of its own, `--rank_worker`, through the CLIs' entry
      points, over gloo): each rank's backend and device, which collectives
-     gloo runs on CUDA tensors, one rank's all-reduce of 175 MB
+     gloo runs on CUDA tensors (all-reduce, all-gather into one tensor and
+     broadcast, which the port uses, must run), one rank's all-reduce of 175 MB
      (iresnet50's gradient) from device and from host memory, and one
      attempt at NCCL with two ranks on the card, whose refusal is printed
      and is no failure;
  36. `train_arcface.main` on 2 x 2 ranks (n_model 2): iresnet50 fp32,
      1,000,000 classes dense, global batch 256, 3 steps with checkpoints:
      losses and the table's sum of |w| against two one-rank runs of the
-     same command, within 10 times their own spread (at least 1e-5); one
-     K5 and one K6 launch a step on each rank, on its 500,000-row shard;
-     the same backbone bits on every rank; the primary's files only; then
-     one rank resumes the step-2 checkpoint and its step 3 continues the
-     2 x 2 run; samples/s and each rank's peak memory;
+     same command, within 10 times their own spread (at least 1e-5), and
+     what the steps moved the class rows that the labels touch by, read
+     from the 2 x 2 run's final checkpoint (at least 1e-3); the ranks'
+     labels make the one rank's batch; one K5 and one K6 launch a step on
+     each rank, on its 500,000-row shard; the same backbone bits on every
+     rank; the primary's files only; then one rank resumes the step-2
+     checkpoint and its step 3 continues the 2 x 2 run, touched rows too;
+     samples/s and each rank's peak memory;
  37. `train_rgb.main` on 2 ranks at full width, global batch 2, 2 steps:
      disjoint rows that make up the one-rank batch, losses and what the
      steps moved the params by against two one-rank runs (within 10 times
-     their spread, at least 1e-5 and 1e-4), each rank's launches equal to
+     their spread, at least 1e-5 and 1e-2), each rank's launches equal to
      one rank's, the primary's files only; then `run_recon_video_rgb.main`
      on 2 ranks at batch 8, frames within one level of one rank's, written
      by the primary alone.
@@ -4309,6 +4313,9 @@ MP_REENACT_BATCH = 8
 MP_SPREAD_FACTOR = 10.0
 MP_LOSS_FLOOR = 1e-5
 MP_PARAMS_FLOOR = 1e-2
+# the class rows that [36]'s labels touch, what the steps moved them by, in
+# relative L2: a doubled or missing head gradient on them parts by 50-100 %
+MP_ROWS_FLOOR = 1e-3
 
 
 def free_port() -> int:
@@ -4506,6 +4513,27 @@ def timed_steps(train_arcface):
         train_arcface.arc.make_train_step = real
 
 
+@contextlib.contextmanager
+def recorded_labels(train_arcface):
+    """Every step of the `train_arcface.main` runs inside: yields the list
+    of each step's labels (the rank's rows of the global batch)."""
+    real, into = train_arcface.arc.make_train_step, []
+
+    def make(*x, **kw):
+        step = real(*x, **kw)
+
+        def recording(state, images, labels, *sa, **skw):
+            into.append(labels.tolist())
+            return step(state, images, labels, *sa, **skw)
+        return recording
+
+    train_arcface.arc.make_train_step = make
+    try:
+        yield into
+    finally:
+        train_arcface.arc.make_train_step = real
+
+
 def rank_arcface(a) -> dict:
     """[36] train_arcface.main on this rank: its losses, launches, the rows
     K5/K6 ran on, its shard's checksum, the bits of its backbone and
@@ -4548,10 +4576,12 @@ def rank_arcface(a) -> dict:
     args = arc_args("--num_classes", str(MP_ARC_CLASSES), "--num_steps",
                     str(MP_ARC_STEPS), "--save_freq", "2", "--n_model", "2",
                     "--output", out_dir)
-    with timed_steps(train_arcface) as step_s:
+    with timed_steps(train_arcface) as step_s, \
+            recorded_labels(train_arcface) as labels:
         losses, launches, seconds, peak, sps = run_arcface_cli(args)
     st = states[-1]
-    return {"losses": losses, "launches": launches, "ce_rows": sorted(
+    return {"losses": losses, "labels": labels,
+            "launches": launches, "ce_rows": sorted(
                 set(rows)), "seconds": seconds, "peak_gib": peak / GIB,
             "sps": sps, "table_abs_sum": float(st.fc_weight.double().abs()
                                                .sum()),
@@ -4709,7 +4739,7 @@ def phase_mp_setup(tmp: str) -> dict:
            for res in ranks):
         fail(f"[35] ranks sharing the card should be gloo on cuda:0: "
              f"{[(x['backend'], x['device']) for x in ranks]}")
-    for name in ("all_reduce", "broadcast"):
+    for name in ("all_reduce", "broadcast", "all_gather_into_tensor"):
         # what the port's collectives use on the card
         if r0["collectives"][name] != "ran":
             fail(f"[35] gloo's {name} on CUDA tensors: "
@@ -4733,32 +4763,64 @@ def spread(a: list[float], b: list[float]) -> float:
     return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
 
 
-def one_rank_arcface(out: str | None) -> dict:
-    """[36]'s command on one rank: losses and the table's checksum."""
+def one_rank_arcface(out: str | None, touched: torch.Tensor | None = None
+                     ) -> dict:
+    """[36]'s command on one rank: losses, each step's labels, the table's
+    checksum, the final rows of the classes `touched` (by default those
+    of its own labels) and the final backbone; without `out`, also their
+    initial values."""
     from hfa_gp_tpu_torch.cli import train_arcface
-    states = []
+    states, init_w, init_bb = [], [], []
     real_init = train_arcface.arc.init_state
 
     def init(*x, **kw):
         states.append(real_init(*x, **kw))
+        if out is None:
+            init_w.append(states[-1].fc_weight.clone())
+            init_bb.append(host_f64(states[-1].backbone.state_dict()))
         return states[-1]
 
     train_arcface.arc.init_state = init
     extra = ["--output", out, "--resume"] if out else []
     try:
-        with timed_steps(train_arcface) as step_s:
+        with timed_steps(train_arcface) as step_s, \
+                recorded_labels(train_arcface) as labels:
             losses, launches, seconds, peak, sps = run_arcface_cli(arc_args(
                 "--num_classes", str(MP_ARC_CLASSES), "--num_steps",
                 str(MP_ARC_STEPS), *extra))
     finally:
         train_arcface.arc.init_state = real_init
     st = states[-1]
-    res = {"losses": losses, "launches": launches, "sps": sps,
+    if touched is None:
+        touched = torch.tensor(sorted({c for x in labels for c in x}))
+    dev = touched.to(st.fc_weight.device)
+    res = {"losses": losses, "labels": labels, "launches": launches,
+           "sps": sps, "touched": touched,
+           "rows": st.fc_weight[dev].double().cpu(),
+           "init_rows": init_w[0][dev].double().cpu() if init_w else None,
+           "backbone": host_f64(st.backbone.state_dict()),
+           "init_backbone": init_bb[0] if init_bb else None,
            "table_abs_sum": float(st.fc_weight.double().abs().sum()),
            "peak_gib": peak / GIB, "step_s": step_s}
-    del st, states
+    del st, states, init_w
     torch.cuda.empty_cache()
     return res
+
+
+def host_f64(tree: dict) -> dict:
+    """A state dict's floating tensors as float64 on the host."""
+    return {k: v.detach().double().cpu() for k, v in tree.items()
+            if v.is_floating_point()}
+
+
+def moved_gap(a, ref, init) -> float:
+    """Relative L2 gap of what the steps moved a tensor, or a state dict
+    of them, by: |a - ref| / |ref - init|."""
+    if not isinstance(ref, dict):
+        a, ref, init = {"": a}, {"": ref}, {"": init}
+    num = sum(float((a[k].double() - ref[k]).square().sum()) for k in ref)
+    den = sum(float((ref[k] - init[k]).square().sum()) for k in ref)
+    return (num / den) ** 0.5
 
 
 def phase_mp_arcface(tmp: str) -> dict:
@@ -4775,6 +4837,27 @@ def phase_mp_arcface(tmp: str) -> dict:
     table = ranks[0]["table_abs_sum"] + ranks[1]["table_abs_sum"]
     gap = spread(ranks[0]["losses"] + [table],
                  one[0]["losses"] + [one[0]["table_abs_sum"]])
+    # the rows the labels touch, in the 2 x 2 run's final checkpoint (the
+    # whole table, gathered from the shards) against the one rank's
+    cdir = os.path.join(out, "run0", "checkpoint")
+    touched, init_rows = one[0]["touched"], one[0]["init_rows"]
+    saved = torch.load(os.path.join(cdir, f"{MP_ARC_STEPS:06d}"),
+                       map_location="cpu", weights_only=True, mmap=True)
+    mp_rows = saved["fc_weight"][touched].double()
+    # not held to a bound: where the rows' gap comes from
+    bb_gap = moved_gap(saved["backbone"], one[0]["backbone"],
+                       one[0]["init_backbone"])
+    bb_spread = moved_gap(one[1]["backbone"], one[0]["backbone"],
+                          one[0]["init_backbone"])
+    del saved
+    row_tol = max(MP_SPREAD_FACTOR * moved_gap(one[1]["rows"], one[0]["rows"],
+                                               init_rows), MP_ROWS_FLOOR)
+    row_gap = moved_gap(mp_rows, one[0]["rows"], init_rows)
+    # the data indices' labels (ranks 0 and 2) make the one rank's batch
+    batches_agree = all(
+        ranks[0]["labels"][t] == ranks[1]["labels"][t]
+        and ranks[0]["labels"][t] + ranks[2]["labels"][t] == lab
+        for t, lab in enumerate(one[0]["labels"]))
     print(f"[36] train_arcface on 2 x 2 ranks (n_model 2, one card, gloo): "
           f"{ARC_NET} fp32, {MP_ARC_CLASSES:,} classes dense, global batch "
           f"{ARC_BATCH}, {MP_ARC_STEPS} steps in {wall:.2f} s (rank "
@@ -4784,6 +4867,15 @@ def phase_mp_arcface(tmp: str) -> dict:
           f"and the table's sum of |w|) {gap:.3e} against the tolerance "
           f"{tol:.3e} (x{MP_SPREAD_FACTOR:g} the one rank's run-to-run "
           f"spread, at least {MP_LOSS_FLOOR:g})", flush=True)
+    print(f"[36] the {len(touched)} class rows the labels touch: what the "
+          f"steps moved them by, 2 x 2 (its checkpoint) against one rank, "
+          f"relative L2 gap {row_gap:.3e} against the tolerance "
+          f"{row_tol:.3e} (x{MP_SPREAD_FACTOR:g} the one rank's run-to-run "
+          f"{moved_gap(one[1]['rows'], one[0]['rows'], init_rows):.3e}, at "
+          f"least {MP_ROWS_FLOOR:g}); the ranks' batches make the one "
+          f"rank's: {batches_agree}; what the steps moved the backbone by, "
+          f"relative L2 gap {bb_gap:.3e} (one rank's run-to-run "
+          f"{bb_spread:.3e})", flush=True)
     for r, res in enumerate(ranks):
         print(f"[36] rank {r}: launches {res['launches']}, K5/K6 on "
               f"{res['ce_rows']} rows, samples/s {res['sps']:.1f} (global "
@@ -4806,6 +4898,11 @@ def phase_mp_arcface(tmp: str) -> dict:
           flush=True)
     if not gap <= tol:
         fail(f"[36] 2 x 2 ranks part from one rank by {gap:.3e} > {tol:.3e}")
+    if not batches_agree:
+        fail("[36] the 2 x 2 ranks' labels do not make the one rank's batch")
+    if not row_gap <= row_tol:
+        fail(f"[36] the touched class rows of 2 x 2 ranks part from one "
+             f"rank's by {row_gap:.3e} > {row_tol:.3e}")
     expected = {**NO_LAUNCHES, "flash_ce_fwd": MP_ARC_STEPS,
                 "flash_ce_bwd": MP_ARC_STEPS}
     shard = MP_ARC_CLASSES // 2
@@ -4819,21 +4916,24 @@ def phase_mp_arcface(tmp: str) -> dict:
         want = ["checkpoint", "training.log"] if r == 0 else None
         if res["files"] != want:
             fail(f"[36] rank {r} wrote {res['files']}, expected {want}")
-    cdir = os.path.join(out, "run0", "checkpoint")
     if sorted(os.listdir(cdir)) != ["000002", "000003"]:
         fail(f"[36] checkpoints {sorted(os.listdir(cdir))}")
     # one rank resumes the 2 x 2 run's step-2 checkpoint
     os.remove(os.path.join(cdir, "000003"))
-    resumed = one_rank_arcface(os.path.join(out, "run0"))
+    resumed = one_rank_arcface(os.path.join(out, "run0"), touched)
     rgap = spread(resumed["losses"] + [resumed["table_abs_sum"]],
                   ranks[0]["losses"][-1:] + [table])
+    rrow_gap = moved_gap(resumed["rows"], mp_rows, init_rows)
     print(f"[36] one rank resumed the 2 x 2 checkpoint of step 2: step 3's "
           f"loss {resumed['losses']}, 2 x 2 {ranks[0]['losses'][-1:]}, "
-          f"relative gap (with the table's sum of |w|) {rgap:.3e}",
+          f"relative gap (with the table's sum of |w|) {rgap:.3e}; the "
+          f"touched rows' moves against the 2 x 2 run's {rrow_gap:.3e}",
           flush=True)
-    if len(resumed["losses"]) != 1 or not rgap <= tol:
+    if len(resumed["losses"]) != 1 or not rgap <= tol \
+            or not rrow_gap <= row_tol:
         fail(f"[36] the resumed run does not continue the 2 x 2 one: "
-             f"{resumed['losses']}, gap {rgap:.3e} > {tol:.3e}")
+             f"{resumed['losses']}, gap {rgap:.3e} > {tol:.3e} or rows "
+             f"{rrow_gap:.3e} > {row_tol:.3e}")
     return {"launches_per_rank": ranks[0]["launches"],
             "sps": ranks[0]["sps"], "step_ms": mp_ms,
             "one_rank_step_ms": one_ms,

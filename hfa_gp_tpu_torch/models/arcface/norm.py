@@ -56,7 +56,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         part = torch.stack([torch.full_like(mean, n), mean, m2], -1)
         m = ctx.sync = _SYNC
         counts, means, m2s = mesh.gather_rows(
-            part[None], m.data_group, m.data_index, m.n_data).unbind(-1)
+            part[None], m.data_group).unbind(-1)
         total = counts.sum(0)
         gmean = (counts * means).sum(0) / total
         var = (m2s.sum(0) + (counts * (means - gmean).square()).sum(0)) \

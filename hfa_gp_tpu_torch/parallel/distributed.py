@@ -91,8 +91,7 @@ def backend_for(device: torch.device, args=None) -> str:
     return "nccl" if device.type == "cuda" and own_cards(args) else "gloo"
 
 
-def maybe_initialize(args=None, device: torch.device | str = "cpu",
-                     timeout: datetime.timedelta | None = None) -> bool:
+def maybe_initialize(args=None, device: torch.device | str = "cpu") -> bool:
     """Join the process group when several processes are configured;
     returns True when running over several processes. `device` is the
     rank's device (`rank_device`), which picks the backend."""
@@ -106,7 +105,7 @@ def maybe_initialize(args=None, device: torch.device | str = "cpu",
         torch.cuda.set_device(device)
     dist.init_process_group(backend_for(device, args),
                             init_method=f"tcp://{coord}", world_size=nproc,
-                            rank=pid, timeout=timeout or TIMEOUT)
+                            rank=pid, timeout=TIMEOUT)
     return True
 
 

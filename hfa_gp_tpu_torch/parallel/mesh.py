@@ -12,10 +12,9 @@ Where JAX's `make_mesh_for_batch` would leave devices idle (a batch that
 does not divide over them), the port raises: a rank cannot sit out the
 collectives of the others.
 
-Every gather is an all-reduce of a zero-padded buffer (exact: each entry
-is one rank's value plus zeros), so that the port needs one collective of
-the backend on CUDA tensors besides the broadcast: gloo runs both on CUDA
-tensors (it stages them through host memory itself).
+The port uses three collectives: all-reduce, all-gather into one tensor
+and broadcast. nccl has all three on CUDA tensors, and gloo runs them on
+CUDA tensors too (it stages them through host memory itself).
 """
 
 from __future__ import annotations
@@ -59,13 +58,10 @@ def _group(ranks: list[int], world: int):
     return dist.new_group(ranks)
 
 
-def make_mesh(n_data: int | None = None, n_model: int = 1) -> Mesh:
+def make_mesh(n_data: int, n_model: int = 1) -> Mesh:
     """The mesh over every rank of the process group (one rank outside
-    one); the data axis defaults to what the model axis leaves. Every rank
-    calls it, in the same order as the others."""
+    one). Every rank calls it, in the same order as the others."""
     rank, world = distributed.world()
-    if n_data is None:
-        n_data = max(world // n_model, 1)
     if n_data * n_model != world:
         raise ValueError(
             f"a mesh of {n_data} x {n_model} (data x model) needs "
@@ -151,24 +147,21 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM
     return t
 
 
-def gather_rows(x: torch.Tensor, group, index: int, count: int
-                ) -> torch.Tensor:
-    """Concatenate the ranks' x along dim 0 in group order (index: this
-    rank's place in the group, count: its size), on every rank of it. An
-    all-reduce of a zero-padded buffer: exact, as each entry holds one
-    rank's value plus zeros."""
-    if group is None or count == 1:
+def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Concatenate the ranks' x along dim 0 in group order, on every rank
+    of the group; nothing to do for a group of one (None)."""
+    if group is None:
         return x
-    b = x.shape[0]
-    buf = x.new_zeros((count * b, *x.shape[1:]))
-    buf[index * b:(index + 1) * b] = x
-    return all_reduce_(buf, group)
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],
+                       *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
 
 
 def host_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The data-sharded x (this rank's rows) → the whole array on every
     rank."""
-    return gather_rows(x, mesh.data_group, mesh.data_index, mesh.n_data)
+    return gather_rows(x, mesh.data_group)
 
 
 @torch.no_grad()
@@ -250,7 +243,7 @@ class _GatherData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         ctx.mesh, ctx.b = mesh, x.shape[0]
-        out = gather_rows(x, mesh.data_group, mesh.data_index, mesh.n_data)
+        out = gather_rows(x, mesh.data_group)
         return x.clone() if out is x else out
 
     @staticmethod
@@ -282,5 +275,5 @@ def gather_data(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     if mesh is None or mesh.size == 1:
         return x
     if not x.requires_grad:
-        return gather_rows(x, mesh.data_group, mesh.data_index, mesh.n_data)
+        return gather_rows(x, mesh.data_group)
     return _GatherData.apply(x, mesh)

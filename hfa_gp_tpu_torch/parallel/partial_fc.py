@@ -211,12 +211,15 @@ def _remap_to_sampled(local_lab: torch.Tensor, index: torch.Tensor
 def _shard_generator(generator: torch.Generator, shard: int,
                      n_model: int) -> torch.Generator:
     """The sampling generator of one class shard: the step's own with one
-    shard, else one seeded from (the step's seed, shard index), as JAX's
-    fold_in(key, shard_idx), so that every rank of a shard samples alike
-    and the shards differently."""
+    shard, else one seeded from (a draw of the step's generator, shard
+    index), as JAX's fold_in(key, shard_idx). Every rank of a shard holds
+    the step's generator in one state, so they sample alike, the shards
+    differently, and the draw advances it as sampling would."""
     if n_model == 1:
         return generator
-    seed = (generator.initial_seed() * 65_537 + 1 + shard) % 2 ** 63
+    draw = int(torch.randint(2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+    seed = (draw * 65_537 + 1 + shard) % 2 ** 63
     return torch.Generator(generator.device).manual_seed(seed)
 
 

@@ -270,3 +270,30 @@ def test_sampled_loss_runs_and_refusals():
         tpfc.PartialFC(65, 16, mesh=Mesh(n_data=1, n_model=2, rank=1))
     sharded = tpfc.PartialFC(64, 16, mesh=Mesh(n_data=1, n_model=2, rank=1))
     assert (sharded.shard, sharded.num_local) == (1, 32)
+
+
+def test_shard_sampling_follows_the_generator():
+    """On a model axis of 2, each shard's negatives come from the step's
+    generator as it stands: a generator that advances draws anew every
+    call, one in the same state draws the same, and the shards differ."""
+    from hfa_gp_tpu_torch.parallel.mesh import Mesh
+    shards = [tpfc.PartialFC(4096, 16, sample_rate=0.05,
+                             mesh=Mesh(n_data=1, n_model=2, rank=r))
+              for r in range(2)]
+    lab = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 4096, 8).astype(np.int64))
+    g = torch.Generator().manual_seed(7)
+    first = shards[0].sample_indices(lab, g)
+    second = shards[0].sample_indices(lab, g)
+    assert first.shape == second.shape == (shards[0].num_sample,)
+    assert not torch.equal(first, second)
+    # every rank of a shard holds the generator in one state: alike
+    again = shards[0].sample_indices(lab, torch.Generator().manual_seed(7))
+    assert torch.equal(first, again)
+    other = shards[1].sample_indices(lab, torch.Generator().manual_seed(7))
+    assert not torch.equal(first, other)
+    # each shard keeps the positives of its own classes
+    for pfc, idx in ((shards[0], first), (shards[1], other)):
+        lo = pfc.shard * pfc.num_local
+        mine = lab[(lab >= lo) & (lab < lo + pfc.num_local)] - lo
+        assert bool(torch.isin(mine, idx).all())
