@@ -154,8 +154,8 @@ result line:
      and stream over an in-memory reader (it says which): the batches on
      the card equal to the CPU decode bit for bit, K5 and K6 once a step,
      finite losses, samples/s beside [10]'s and [12]'s synthetic figures;
- 33. a line saying that the native image loader is not ported (the card's
-     machine lacks libpng's and libjpeg's headers);
+ 33. (retired: the native image loader's line moved to 39, now that the
+     loader is ported);
  34. the port against the reference's golden seams (`tests/golden/
      seams.npz`, `hfa_gp_tpu_torch.tools.check_golden`) on the card:
      `ray_march` through the marcher kernel, `sample_pdf`,
@@ -186,7 +186,22 @@ result line:
      their spread, at least 1e-5 and 1e-2), each rank's launches equal to
      one rank's, the primary's files only; then `run_recon_video_rgb.main`
      on 2 ranks at batch 8, frames within one level of one rank's, written
-     by the primary alone.
+     by the primary alone;
+ 38. the same two commands with `--n_model 2` on 2 ranks (ray sharding:
+     the ranks split each image's rays), on 37's dataset, against one rank
+     with the same placement of the fine samples (the global quantiles,
+     which the CLIs pick under a model axis): losses and what the steps
+     moved the params by under 37's rule, the two ranks' params equal bit
+     for bit, each rank's launches equal to one rank's with every launch
+     of K1, K2, K4 and K4' on half the rays (the (batch, rays) of each
+     printed), frames within one level, the primary's files only;
+     steps/s and frames/s beside one rank's with the card's name and power
+     limit (two ranks that share one card give no scaling figure);
+ 39. the native image loader (`hfa_gp_tpu_torch/data/native_loader.py`,
+     built with g++ from `csrc/hfaio.cpp`) where the compiler finds
+     libpng's and libjpeg's headers: PIL-written PNGs and a JPEG decoded
+     at 64², against PIL's decode and the same resize, and a loader of 2
+     workers; elsewhere one line naming what is missing.
 
 Before the summary it prints, for each kernel, launches x (ms - bound) per
 reenactment batch, RGB step and arcface step (a bf16 one for the bf16
@@ -194,7 +209,7 @@ entries, whose launches are [24]'s). The line before the last is a
 JSON summary of the kernels; the last line
 is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It exits non-zero, with no result line, when CUDA is unavailable or when
-it is run outside a checkout; a rank of [35]-[37] that fails fails the
+it is run outside a checkout; a rank of [35]-[38] that fails fails the
 script. It imports nothing of JAX, of the JAX
 package `hfa_gp_tpu` or of the repository's root `tools`, and checks that
 before the result line.
@@ -610,6 +625,152 @@ def phase_sampler_bwd_general_paths(dev, g) -> None:
         fail(f"sampler backward kernel on its general paths: {worst}")
 
 
+# what each of 2 ranks of a model axis renders: half of the 128 x 128 rays,
+# 64 whole rows, so K2 gets the layout (64, 128, 48)
+SHARD_RAYS = MAIN_LAYOUT[0] * MAIN_LAYOUT[1] // 2
+SHARD_LAYOUT = (MAIN_LAYOUT[0] // 2, *MAIN_LAYOUT[1:])
+
+
+def phase_kernels_ray_shard(dev, g, entries: dict) -> None:
+    """K1, K2, K4 and K4′ at the shapes each rank of [38] gives them: the
+    points of each half of the image's rows at batch 2 and 8 (K2 with the
+    half's layout, without it, and the two halves' gradients summed
+    against the whole image's), the marcher on (B, 8,192) rays at N 96 and
+    48 with the depth clipped to a range wider than its own (the range of
+    every rank's depths), and its backward at batch 2. Times at batch 2
+    go into `entries` as *_ray_shard."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    h, w, n = MAIN_LAYOUT
+    half = SHARD_RAYS * n
+    err1, rel2 = 0.0, 0.0
+    for b in (2, 8):
+        shape = (b, 3, 256, 256, 32)
+        planes = torch.randn(shape, generator=g).to(dev)
+        whole = main_path_points(dev, b)
+        cot = torch.randn((b, whole.shape[1], 32), generator=g).to(dev)
+        summed = torch.zeros(shape, device=dev)
+        for k in range(2):
+            pts = whole[:, k * half:(k + 1) * half].contiguous()
+            ct = cot[:, k * half:(k + 1) * half].contiguous()
+            err1 = max(err1, (triplane.sample_mean(planes, pts, 1.0)
+                              - triplane.sample_mean_plain(planes, pts, 1.0))
+                       .abs().max().item())
+            want = triplane.sample_mean_backward_plain(ct, shape, pts, 1.0)
+            for layout in (SHARD_LAYOUT, None):
+                got = triplane.sample_mean_backward(ct, shape, pts, 1.0,
+                                                    layout)
+                rel2 = max(rel2, rel_err(got, want)[1])
+            summed += got
+            del want, got
+        rel2 = max(rel2, rel_err(summed, triplane.sample_mean_backward_plain(
+            cot, shape, whole, 1.0))[1])
+        torch.cuda.synchronize()
+        if b == 2:
+            # rank 1's share: rows [64, 128)
+            ct = cot[:, half:].contiguous()
+            timed = {
+                "triplane_sampler": (
+                    lambda: triplane.sample_mean(planes, pts, 1.0),
+                    lambda: triplane.sample_mean_plain(planes, pts, 1.0),
+                    nbytes(planes, pts) + 4 * b * half * 32, pts),
+                "triplane_sampler_bwd": (
+                    lambda: triplane.sample_mean_backward(
+                        ct, shape, pts, 1.0, SHARD_LAYOUT),
+                    lambda: triplane.sample_mean_backward_plain(
+                        ct, shape, pts, 1.0),
+                    nbytes(ct, pts) + 4 * int(np.prod(shape)), pts)}
+            for name, (fn, plain, n_bytes, p) in timed.items():
+                c = shape[-1]
+                bd = bound(n_bytes, in_bounds_corners(p, 256, 256) * 2 * c
+                           + p.shape[0] * p.shape[1] * (c + 60))
+                entries[name].update({
+                    "ms_ray_shard": cuda_time_ms(fn),
+                    "plain_ms_ray_shard": cuda_time_ms(plain, iters=5),
+                    "bound_ms_ray_shard": bd["bound_ms"]})
+            entries["triplane_sampler_bwd"]["ms_ray_shard_no_layout"] = \
+                cuda_time_ms(lambda: triplane.sample_mean_backward(
+                    ct, shape, pts, 1.0))
+        del planes, whole, cot, summed, pts, ct
+    print(f"[3] sampler kernels at each rank's share under ray sharding "
+          f"(rows [0, {h // 2}) and [{h // 2}, {h}) of the {h} x {w} rays, "
+          f"batch 2 and 8): "
+          f"forward max abs err {err1:.3e} (bound {SAMPLER_ATOL:g}); "
+          f"backward with the layout {SHARD_LAYOUT} and without, and the "
+          f"two halves summed against the whole image, {rel2:.3e} of the "
+          f"gradient's scale (bound {BWD_RTOL:g})", flush=True)
+    if not err1 <= SAMPLER_ATOL or not rel2 <= BWD_RTOL:
+        fail(f"sampler kernels at the ray-sharded shapes: forward {err1}, "
+             f"backward {rel2}")
+
+    err4 = 0.0
+    for b, nn in ((2, 96), (2, 48), (8, 96), (8, 48)):
+        colors, dens, depths = march_inputs(dev, g, b, SHARD_RAYS, nn, 32)
+        lo, hi = torch.aminmax(depths)
+        rng = (lo - 0.5, hi + 0.5)
+        got = raymarch.ray_march(colors, dens, depths, depth_range=rng)
+        want = raymarch.ray_march_plain(colors, dens, depths,
+                                        depth_range=rng)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("rgb", "depth", "weights"), got, want):
+            e = (x - y).abs()
+            err4 = max(err4, e.max().item())
+            if not bool((e <= MARCH_ATOL + MARCH_RTOL * y.abs()).all()):
+                fail(f"marcher kernel disagrees with its plain version on "
+                     f"{name} at (B, rays, N) {(b, SHARD_RAYS, nn)} with a "
+                     f"depth range: max abs err {e.max().item()}")
+        if (b, nn) == (2, 96):
+            ent = entries["ray_marcher"]
+            ent.update({
+                "ms_ray_shard": cuda_time_ms(lambda: raymarch.ray_march(
+                    colors, dens, depths, depth_range=rng)),
+                "plain_ms_ray_shard": cuda_time_ms(
+                    lambda: raymarch.ray_march_plain(
+                        colors, dens, depths, depth_range=rng)),
+                "bound_ms_ray_shard": bound(
+                    nbytes(colors, dens, depths, *got),
+                    b * SHARD_RAYS * (nn - 1) * (4 * 32 + 25))["bound_ms"]})
+            with torch.no_grad():
+                outs = raymarch.ray_march_plain(colors, dens, depths)
+            err4b, rel4b, cots = marcher_bwd_check(
+                dev, g, (colors, dens, depths), outs,
+                f"(2, {SHARD_RAYS}, 96)")
+            ct = cots["rgb"]
+            ent = entries["ray_marcher_bwd"]
+            ent.update({
+                "ms_ray_shard_rgb_only": cuda_time_ms(
+                    lambda: raymarch.ray_march_backward(colors, dens,
+                                                        depths, *ct)),
+                "plain_ms_ray_shard_rgb_only": cuda_time_ms(
+                    lambda: raymarch.ray_march_backward_plain(
+                        colors, dens, depths, *ct)),
+                "bound_ms_ray_shard_rgb_only": bound(
+                    nbytes(colors, dens, depths, ct[0], colors, dens),
+                    0)["bound_ms"]})
+            del outs, cots, ct
+        del colors, dens, depths, got, want
+    print(f"[3] marcher kernel at each rank's share (B 2 and 8, "
+          f"{SHARD_RAYS} rays, N 96 and 48, the depth clipped to a wider "
+          f"range): max abs err {err4:.3e} (bound rtol {MARCH_RTOL:g} atol "
+          f"{MARCH_ATOL:g}); its backward at (2, {SHARD_RAYS}, 96, 32), "
+          f"cotangents of rgb / all three / none: max abs err {err4b:.3e}, "
+          f"{rel4b:.3e} of the gradient's scale (bound {BWD_RTOL:g})",
+          flush=True)
+    print("    at rank 1's share, batch 2 (ms): "
+          + "; ".join(f"{k} kernel {e['ms_ray_shard' + suf]:.4f}, plain "
+                      f"{e['plain_ms_ray_shard' + suf]:.4f}, bound "
+                      f"{e['bound_ms_ray_shard' + suf]:.4f}"
+                      for k, e, suf in (
+                          ("K1", entries["triplane_sampler"], ""),
+                          ("K2", entries["triplane_sampler_bwd"], ""),
+                          ("K4", entries["ray_marcher"], ""),
+                          ("K4' (rgb's cotangent)",
+                           entries["ray_marcher_bwd"], "_rgb_only")))
+          + "; K2 without the layout "
+          f"{entries['triplane_sampler_bwd']['ms_ray_shard_no_layout']:.4f}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, err, ms, plain_ms, library_ms,
                  n_bytes, n_flops, n_flops_bf16=0.0) -> dict:
     entry = {"name": name, "route": "cuda", "source": source,
@@ -731,6 +892,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
                                           want))
     del colors, dens, depths, want
     phase_marcher_bwd_general_paths(dev, g)
+    phase_kernels_ray_shard(dev, g, {e["name"]: e for e in results})
     results += phase_kernels_flash_ce(dev, g)
     results.append(phase_kernels_probe(dev))
     return results
@@ -4286,7 +4448,7 @@ def phase_golden() -> None:
              f"{raymarch.LAUNCHES - n0} times, not once")
 
 
-# [35]-[37], the port over several processes: each multi-rank run is this
+# [35]-[38], the port over several processes: each multi-rank run is this
 # script started as ranks of its own (`--rank_worker <phase>`, with the
 # WORLD_SIZE/RANK/MASTER_ADDR/MASTER_PORT contract), through the CLIs'
 # entry points, on the one card: the ranks share it and talk over gloo.
@@ -4608,17 +4770,76 @@ class RecordingRows:
         return Recorded
 
 
-def run_rgb_cli(root: str, exp: str) -> dict:
+@contextlib.contextmanager
+def recorded_rays():
+    """Yields {kernel: [(batch, rays) of each launch]} of the four avatar
+    kernels while it is open; the sampler's rays are its points over the
+    render's samples a ray in each pass."""
+    from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
+    from hfa_gp_tpu_torch.models.eg3d.renderer import RenderConfig
+    n = RenderConfig().depth_resolution
+    assert n == RenderConfig().depth_resolution_importance
+    seen = {"triplane_sampler": [], "triplane_sampler_bwd": [],
+            "ray_marcher": [], "ray_marcher_bwd": []}
+    real = {"triplane_sampler": (triplane, "_launch_forward"),
+            "triplane_sampler_bwd": (triplane, "sample_mean_backward"),
+            "ray_marcher": (raymarch, "_launch_forward"),
+            "ray_marcher_bwd": (raymarch, "ray_march_backward")}
+    fns = {k: getattr(m, a) for k, (m, a) in real.items()}
+
+    def wrap(name):
+        def fn(*a, **kw):
+            if name.startswith("triplane"):
+                pts = a[2] if name.endswith("bwd") else a[1]
+                seen[name].append((pts.shape[0], pts.shape[1] // n))
+            else:
+                seen[name].append(tuple(a[0].shape[:2]))
+            return fns[name](*a, **kw)
+        return fn
+
+    for k, (m, a) in real.items():
+        setattr(m, a, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, (m, a) in real.items():
+            setattr(m, a, fns[k])
+
+
+@contextlib.contextmanager
+def global_placement():
+    """The avatar CLIs' config with the fine samples at the global
+    quantiles, which they pick themselves under --n_model > 1: a one-rank
+    run to hold a ray-sharded one against."""
+    from hfa_gp_tpu_torch.cli import common
+    real = common.avatar_config
+
+    def cfg(args, **kw):
+        return with_render(real(args, **kw), sampler_fine="global")
+
+    common.avatar_config = cfg
+    try:
+        yield
+    finally:
+        common.avatar_config = real
+
+
+def run_rgb_cli(root: str, exp: str, n_model: int = 1) -> dict:
     """train_rgb.main, MP_RGB_STEPS steps at full width, global batch 2:
-    losses, launches, the rows of the train split read, seconds."""
+    losses, launches, the rows of the train split read, seconds, each
+    step's seconds, the rays of each launch, and with a model axis a hash
+    of the params after the last step."""
     from hfa_gp_tpu_torch.cli import train_rgb
     from hfa_gp_tpu_torch.train import rgb as rgb_train
     real_ds, real_step = train_rgb.HeadData, rgb_train.train_step
-    losses = []
+    losses, step_s, states = [], [], []
 
     def step(*x, **kw):
+        t0 = time.perf_counter()
         m = real_step(*x, **kw)
         losses.append({k: float(v) for k, v in m.items()})
+        step_s.append(time.perf_counter() - t0)
+        states[:] = [x[0]]
         return m
 
     RecordingRows.rows = []
@@ -4628,48 +4849,82 @@ def run_rgb_cli(root: str, exp: str) -> dict:
         "--dataset_root", root, "--person", "person_3", "--size", "256",
         "--batch_size", "2", "--iter", str(MP_RGB_STEPS), "--display_freq",
         "1000", "--save_freq", str(MP_RGB_STEPS), "--tune_iter", "0",
-        "--exp_path", exp, "--exp_name", "dp", "--device", "cuda"])
+        "--exp_path", exp, "--exp_name", "dp", "--device", "cuda",
+        "--n_model", str(n_model)])
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     try:
-        train_rgb.main(args)
+        with recorded_rays() as rays:
+            train_rgb.main(args)
     finally:
         train_rgb.HeadData, rgb_train.train_step = real_ds, real_step
     launches = read_launches()
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     return {"losses": losses, "launches": launches,
-            "rows": list(RecordingRows.rows),
-            "seconds": time.perf_counter() - t0,
+            "rows": list(RecordingRows.rows), "seconds": seconds,
+            "step_s": step_s, "rays": rays,
+            "sha": sha(states[0].params.parameters())
+            if n_model > 1 and states else None,
             "peak_gib": torch.cuda.max_memory_allocated() / GIB}
 
 
 def rank_rgb(a) -> dict:
     rank = int(os.environ["RANK"])
     exp = os.path.join(a.out, f"exps{rank}")
-    res = run_rgb_cli(a.data, exp)
+    res = run_rgb_cli(a.data, exp, a.n_model)
     res["files"] = sorted(os.listdir(exp)) if os.path.isdir(exp) else None
     return res
 
 
-def run_reenact_cli(root: str, demo: str) -> dict:
+def run_reenact_cli(root: str, demo: str, n_model: int = 1,
+                    warm: bool = False) -> dict:
+    """run_recon_video_rgb.main at batch MP_REENACT_BATCH: launches,
+    seconds, each batch's render seconds (encoder to frames, the card
+    synchronised) and the rays of each launch; with `warm`, after one
+    run of the same command into {demo}_warm, so that the render's time
+    leaves first use out."""
     from hfa_gp_tpu_torch.cli import run_recon_video_rgb
-    args = run_recon_video_rgb.build_argparser().parse_args([
-        "--dataset_root", root, "--person", "person_3", "--size", "256",
-        "--render_batch", str(MP_REENACT_BATCH), "--demo_dir", demo,
-        "--demo_name", "dp", "--fps", "4", "--device", "cuda"])
+
+    def args(out):
+        return run_recon_video_rgb.build_argparser().parse_args([
+            "--dataset_root", root, "--person", "person_3", "--size",
+            "256", "--render_batch", str(MP_REENACT_BATCH), "--demo_dir",
+            out, "--demo_name", "dp", "--fps", "4", "--device", "cuda",
+            "--n_model", str(n_model)])
+
+    if warm:
+        run_recon_video_rgb.main(args(demo + "_warm"))
+    real = run_recon_video_rgb.reenact
+    batch_s = []
+
+    def timed(*x, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*x, **kw)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t)
+        return out
+
     reset_launches()
     t0 = time.perf_counter()
-    run_recon_video_rgb.main(args)
+    run_recon_video_rgb.reenact = timed
+    try:
+        with recorded_rays() as rays:
+            run_recon_video_rgb.main(args(demo))
+    finally:
+        run_recon_video_rgb.reenact = real
     launches = read_launches()
     torch.cuda.synchronize()
-    return {"launches": launches, "seconds": time.perf_counter() - t0}
+    return {"launches": launches, "seconds": time.perf_counter() - t0,
+            "batch_s": batch_s, "rays": rays}
 
 
 def rank_reenact(a) -> dict:
     rank = int(os.environ["RANK"])
     demo = os.path.join(a.out, f"demo{rank}")
-    res = run_reenact_cli(a.data, demo)
+    res = run_reenact_cli(a.data, demo, a.n_model, warm=a.n_model > 1)
     res["files"] = sorted(os.listdir(demo)) if os.path.isdir(demo) else None
     return res
 
@@ -4680,7 +4935,7 @@ RANK_PHASES = {"setup": rank_setup, "nccl": rank_nccl,
 
 
 def rank_worker(argv: list[str]) -> None:
-    """One rank of a [35]-[37] run: its result to {out}/rank{RANK}.json."""
+    """One rank of a [35]-[38] run: its result to {out}/rank{RANK}.json."""
     import argparse
     import datetime
     import traceback
@@ -4688,6 +4943,7 @@ def rank_worker(argv: list[str]) -> None:
     p.add_argument("--rank_worker", choices=sorted(RANK_PHASES))
     p.add_argument("--out")
     p.add_argument("--data", default=None)
+    p.add_argument("--n_model", type=int, default=1)
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         fail("a rank found no CUDA card")
@@ -5040,6 +5296,213 @@ def phase_mp_rgb(tmp: str) -> dict:
             "reenact_launches_per_rank": rranks[0]["launches"]}
 
 
+def phase_mp_rays(tmp: str) -> dict:
+    """[38] train_rgb.main and run_recon_video_rgb.main with --n_model 2 on
+    2 ranks at full width (each image's rays split over the two, which
+    share the card over gloo), on [37]'s dataset, against one rank with
+    the same (global) placement of the fine samples."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.cli import train_rgb
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.models.eg3d.renderer import RenderConfig
+    rays = RenderConfig().neural_rendering_resolution ** 2
+    ranks, _, _ = spawn_ranks("rgb", 2, os.path.join(tmp, "rays"), "--data",
+                              tmp, "--n_model", "2")
+    with global_placement():
+        one = [run_rgb_cli(tmp, os.path.join(tmp, f"rays_one{i}"))
+               for i in range(2)]
+    ck = f"{MP_RGB_STEPS - 1:06d}"
+
+    def ckpt_of(exp):
+        return os.path.join(exp, "dp", "checkpoint", ck)
+
+    init = heads.init_avatar_rgb(torch.Generator().manual_seed(
+        train_rgb.SEED), heads.AvatarConfig()).state_dict()
+    loss = [[m[k] for m in run["losses"] for k in ("l2_loss", "lpips_loss")]
+            for run in (ranks[0], ranks[1], one[0], one[1])]
+    tol_loss = max(MP_SPREAD_FACTOR * spread(loss[2], loss[3]),
+                   MP_LOSS_FLOOR)
+    spread_p = params_moved_gap(ckpt_of(os.path.join(tmp, "rays_one1")),
+                                ckpt_of(os.path.join(tmp, "rays_one0")), init)
+    tol_p = max(MP_SPREAD_FACTOR * spread_p, MP_PARAMS_FLOOR)
+    gap_loss = max(spread(loss[0], loss[2]), spread(loss[1], loss[2]))
+    gap_p = params_moved_gap(ckpt_of(os.path.join(tmp, "rays", "exps0")),
+                             ckpt_of(os.path.join(tmp, "rays_one0")), init)
+    from hfa_gp_tpu_torch.tools.measure import card_line
+    card = card_line()
+    print(f"[38] train_rgb --n_model 2 on 2 ranks (ray sharding; one card, "
+          f"gloo), full width, global batch 2, {MP_RGB_STEPS} steps: "
+          f"(l2, lpips) {loss[0]}, one rank with the same placement "
+          f"{loss[2]}: gap {gap_loss:.3e} (tolerance {tol_loss:.3e}); what "
+          f"the steps moved the params by, relative L2 gap {gap_p:.3e} "
+          f"(tolerance {tol_p:.3e}, the one rank's own {spread_p:.3e}); "
+          f"the ranks' params after the last step: {ranks[0]['sha']} / "
+          f"{ranks[1]['sha']}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"[38] step rank {r}: launches {res['launches']}, (batch, "
+              f"rays) a launch {summarize_rays(res['rays'])}, step seconds "
+              f"{res['step_s']}, peak {res['peak_gib']:.3f} GiB, files "
+              f"{res['files']}", flush=True)
+    print(f"[38] one rank: launches {one[0]['launches']}, (batch, rays) a "
+          f"launch {summarize_rays(one[0]['rays'])}, step seconds "
+          f"{one[0]['step_s']}, peak {one[0]['peak_gib']:.3f} GiB",
+          flush=True)
+    print(f"[38] steps/s of the second step: 2 ranks "
+          f"{1 / ranks[0]['step_s'][-1]:.3f}, one rank "
+          f"{1 / one[0]['step_s'][-1]:.3f} ({card}); two ranks that share "
+          f"one card give no scaling figure: they take turns on it",
+          flush=True)
+    if not gap_loss <= tol_loss or not gap_p <= tol_p:
+        fail(f"[38] 2 ranks part from one: losses {gap_loss:.3e} > "
+             f"{tol_loss:.3e} or params {gap_p:.3e} > {tol_p:.3e}")
+    if ranks[0]["sha"] != ranks[1]["sha"]:
+        fail("[38] the two ranks' params differ after the steps")
+    for r, res in enumerate(ranks):
+        if res["launches"] != one[0]["launches"]:
+            fail(f"[38] rank {r} launched {res['launches']}, one rank "
+                 f"{one[0]['launches']}")
+        check_rays(f"[38] step rank {r}", res["rays"], 2, rays // 2)
+        if res["files"] != (["dp"] if r == 0 else None):
+            fail(f"[38] rank {r} wrote {res['files']}")
+
+    rranks, _, _ = spawn_ranks("reenact", 2, os.path.join(tmp, "rays_re"),
+                               "--data", tmp, "--n_model", "2")
+    with global_placement():
+        rone = run_reenact_cli(tmp, os.path.join(tmp, "rays_re_one"),
+                               warm=True)
+    got = sorted(glob.glob(os.path.join(tmp, "rays_re", "demo0", "dp",
+                                        "*.png")))
+    want = sorted(glob.glob(os.path.join(tmp, "rays_re_one", "dp",
+                                         "*.png")))
+    diffs = [int(np.abs(np.asarray(Image.open(x), np.int16)
+                        - np.asarray(Image.open(y), np.int16)).max())
+             for x, y in zip(got, want)]
+    fps = [MP_REENACT_BATCH / r["batch_s"][0] for r in (rranks[0], rone)]
+    print(f"[38] run_recon_video_rgb --n_model 2 on 2 ranks at batch "
+          f"{MP_REENACT_BATCH}: {len(got)} frames, largest level difference "
+          f"from one rank's {diffs}; launches "
+          f"{[r['launches'] for r in rranks]}, one rank {rone['launches']}; "
+          f"(batch, rays) a launch {summarize_rays(rranks[0]['rays'])}, one "
+          f"rank {summarize_rays(rone['rays'])}; frames/s of the batch "
+          f"(after a first run) 2 ranks {fps[0]:.3f}, one rank "
+          f"{fps[1]:.3f} ({card}); files {[r['files'] for r in rranks]}",
+          flush=True)
+    if len(got) != len(want) or len(got) != MP_REENACT_BATCH \
+            or max(diffs) > 1:
+        fail(f"[38] frames {len(got)} of {len(want)}, level differences "
+             f"{diffs}")
+    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2}
+    for r, res in enumerate(rranks):
+        if res["launches"] != per_rank:
+            fail(f"[38] reenactment rank {r} launched {res['launches']}")
+        check_rays(f"[38] reenactment rank {r}", res["rays"],
+                   MP_REENACT_BATCH, rays // 2)
+        if res["files"] != (["dp"] if r == 0 else None):
+            fail(f"[38] reenactment rank {r} wrote {res['files']}")
+    return {"launches_per_rank": ranks[0]["launches"],
+            "reenact_launches_per_rank": rranks[0]["launches"]}
+
+
+def summarize_rays(rays: dict) -> dict:
+    """{kernel: the distinct (batch, rays) of its launches}."""
+    return {k: sorted({tuple(x) for x in v}) for k, v in rays.items()}
+
+
+def check_rays(what: str, rays: dict, batch: int, want: int) -> None:
+    """Every launch of the four avatar kernels on `batch` images of `want`
+    rays each, and each kernel launched."""
+    for k, v in rays.items():
+        if not v and k in ("triplane_sampler", "ray_marcher"):
+            fail(f"{what}: {k} never launched")
+        if any(tuple(x) != (batch, want) for x in v):
+            fail(f"{what}: {k} launched on (batch, rays) "
+                 f"{sorted({tuple(x) for x in v})}, expected "
+                 f"{(batch, want)}")
+
+
+def phase_native_loader(tmp: str) -> None:
+    """[39] the native image loader (`data/native_loader.py`, built from
+    `csrc/hfaio.cpp` with g++) where the compiler finds libpng's and
+    libjpeg's headers: PNGs and a JPEG written by PIL, decoded at 64²,
+    against PIL's decode and the same bilinear resize in numpy; then a
+    loader of 2 workers, each slot its index's image. Elsewhere one line
+    names what is missing."""
+    from PIL import Image
+
+    from hfa_gp_tpu_torch.data import native_loader
+    missing = native_loader.missing_toolchain()
+    if missing:
+        print(f"[39] the native image loader: not built on this machine, "
+              f"whose g++ finds no {', '.join(missing)} (the build needs "
+              f"libpng's and libjpeg's headers; the CPU tests build and "
+              f"run it where they are)", flush=True)
+        return
+    rng = np.random.default_rng(SEED)
+    paths = []
+    for i, (h, w, mode) in enumerate(((96, 80, "RGB"), (64, 64, "L"),
+                                      (50, 70, "RGBA"), (120, 90, "P"),
+                                      (64, 48, "JPEG"))):
+        arr = rng.integers(0, 256, (h, w, 3), np.uint8)
+        img = Image.fromarray(arr)
+        if mode in ("L", "RGBA", "P"):
+            img = img.convert(mode)
+        path = os.path.join(tmp, f"img{i}" + (".jpg" if mode == "JPEG"
+                                               else ".png"))
+        img.save(path, **({"quality": 95} if mode == "JPEG" else {}))
+        paths.append(path)
+    t0 = time.perf_counter()
+    native_loader.build_library()
+    build_s = time.perf_counter() - t0
+    errs = []
+    for path in paths:
+        got = native_loader.decode_image(path, 64)
+        want = bilinear_like_hfaio(np.asarray(Image.open(path)
+                                              .convert("RGB")), 64)
+        errs.append(float(np.abs(got - want).max()))
+    loader = native_loader.NativeImageLoader(paths, 64, 2, workers=2,
+                                             seed=SEED, drop_last=False)
+    try:
+        for _ in range(3):
+            imgs, idx = loader.next()
+            for img, i in zip(imgs, idx):
+                if not np.array_equal(img, native_loader.decode_image(
+                        paths[int(i)], 64)):
+                    fail(f"[39] the loader's image {int(i)} differs from "
+                         "its decode")
+    finally:
+        loader.close()
+    print(f"[39] the native image loader: built in {build_s:.2f} s; "
+          f"largest difference from PIL + the same resize, in [-1, 1], "
+          f"PNG (RGB, L, RGBA, P) {errs[:4]}, JPEG {errs[4]:.4f}", flush=True)
+    # PNG decodes exactly; JPEG through another libjpeg's IDCT: a few levels
+    if max(errs[:4]) > 1e-5 or errs[4] > 8 * 2 / 255:
+        fail(f"[39] the native decode differs from PIL's: {errs}")
+
+
+def bilinear_like_hfaio(rgb: np.ndarray, size: int) -> np.ndarray:
+    """csrc/hfaio.cpp's resize_normalize in numpy (float32): half-pixel
+    centres, edges clamped, then x·2/255 − 1."""
+    h, w, _ = rgb.shape
+    img = rgb.astype(np.float32)
+
+    def axis(n_in):
+        f = (np.arange(size, dtype=np.float32) + np.float32(0.5)) \
+            * np.float32(n_in / size) - np.float32(0.5)
+        i0 = np.floor(f).astype(np.int64)
+        wgt = (f - i0).astype(np.float32)
+        return (np.clip(i0, 0, n_in - 1), np.clip(i0 + 1, 0, n_in - 1), wgt)
+
+    y0, y1, wy = axis(h)
+    x0, x1, wx = axis(w)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    one = np.float32(1)
+    v = (img[y0][:, x0] * (one - wx) * (one - wy)
+         + img[y0][:, x1] * wx * (one - wy)
+         + img[y1][:, x0] * (one - wx) * wy + img[y1][:, x1] * wx * wy)
+    return v * np.float32(2.0 / 255.0) - one
+
+
 def main() -> None:
     if "--rank_worker" in sys.argv:
         rank_worker(sys.argv[1:])
@@ -5110,9 +5573,6 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         rec_launches = phase_rec_path(tmp, {"cli": arcface_sps,
                                             "steady": arcface_steady_sps})
-    print("[33] the native image loader (native/hfaio.cpp): not ported; the "
-          "card's machine has neither png.h nor jpeglib.h (ROADMAP.md §1.3)",
-          flush=True)
     phase_golden()
     with tempfile.TemporaryDirectory() as tmp:
         phase_mp_setup(tmp)
@@ -5120,6 +5580,9 @@ def main() -> None:
         mp_arc = phase_mp_arcface(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         mp_rgb = phase_mp_rgb(tmp)
+        mp_rays = phase_mp_rays(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_native_loader(tmp)
 
     # launches, each from the run of the path that owns the kernel: the
     # RGB training path's first run (4 steps and one display; the
@@ -5152,6 +5615,11 @@ def main() -> None:
                 mp_rgb["launches_per_rank"][k["name"]]
             k["launches_dp_reenact_per_rank"] = \
                 mp_rgb["reenact_launches_per_rank"][k["name"]]
+            # [38]: each of 2 ranks of the model axis, on half the rays
+            k["launches_ray_shard_step_per_rank"] = \
+                mp_rays["launches_per_rank"][k["name"]]
+            k["launches_ray_shard_reenact_per_rank"] = \
+                mp_rays["reenact_launches_per_rank"][k["name"]]
         if not k["launches"] > 0:
             fail(f"{k['name']} was not launched on its main path")
     # what each kernel loses on a unit of each path: launches x (ms - bound)

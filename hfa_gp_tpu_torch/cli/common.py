@@ -4,11 +4,13 @@ construction, weight loading, experiment directories and video assembly.
 
 Every flag of the JAX CLI is accepted, so reference command lines port
 over unchanged. `--addr` and `--port` are ignored, as in the JAX CLI. Where
-another flag asks for something this port does not do (ray sharding over
-a model axis, TPU machinery, `--trace_dir` outside `run_recon_video_rgb`),
-`avatar_config` raises; none is ignored silently. Several processes
-(`parallel/distributed.py`) split the batch: each CLI joins the process
-group after `device_from_args` has named the rank's device.
+another flag asks for something this port does not do (TPU machinery,
+`--trace_dir` outside `run_recon_video_rgb`), `avatar_config` raises; none
+is ignored silently. Several processes (`parallel/distributed.py`) split
+the batch over a data axis and, with `--n_model` M > 1, each image's rays
+over a model axis of M ranks: each CLI joins the process group after
+`device_from_args` has named the rank's device and lays the ranks out with
+`parallel.mesh.make_mesh_for_batch(batch, args.n_model)`.
 """
 
 from __future__ import annotations
@@ -79,8 +81,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="bfloat16 synthesis chains and OSG decoder (fp32 "
                         "master weights, kernels, image and loss)")
     p.add_argument("--n_model", type=int, default=1,
-                   help="ray sharding over a model axis; only 1 is "
-                        "supported")
+                   help="ranks of the model axis: each image's rays are "
+                        "split over them (ray sharding); with more than "
+                        "one, the fine samples sit at the reference's "
+                        "global quantiles, as the JAX CLI renders then")
     p.add_argument("--pallas_marcher", action="store_true", default=False,
                    help="no effect: the marcher kernel always runs on CUDA")
     p.add_argument("--pallas_sampler", action="store_true", default=None,
@@ -98,11 +102,12 @@ def avatar_config(args, tracing: bool = False) -> AvatarConfig:
     """AvatarConfig for the flags; raises on a flag the port cannot honour,
     and on `--trace_dir` unless the CLI traces (`tracing`). The avatar CLIs
     call it before anything else. `--bf16` runs the synthesis chains and
-    the decoder in bf16, as the JAX CLI does."""
-    if args.n_model != 1:
-        raise NotImplementedError(
-            "--n_model > 1: ray sharding of the render over a model axis "
-            "is not ported (several processes split the batch instead)")
+    the decoder in bf16, as the JAX CLI does. With `--n_model` > 1 (ray
+    sharding) the fine samples take the reference's global quantiles
+    (`sampler_fine="global"`): the JAX CLI turns its windowed sampler off
+    under ray sharding, and its render then places them so."""
+    if args.n_model < 1:
+        raise ValueError(f"--n_model {args.n_model}: must be 1 or more")
     if args.pallas_sampler is False:
         raise NotImplementedError("--no_pallas_sampler: on CUDA the port "
                                   "always runs its tri-plane sampler kernel")
@@ -114,6 +119,10 @@ def avatar_config(args, tracing: bool = False) -> AvatarConfig:
                        use_softmax=args.use_softmax, out_pose=args.out_pose,
                        person_2=args.person_2 is not None,
                        same_bases=args.same_bases)
+    if args.n_model > 1:
+        cfg = dataclasses.replace(cfg, eg3d=dataclasses.replace(
+            cfg.eg3d, render=dataclasses.replace(cfg.eg3d.render,
+                                                 sampler_fine="global")))
     return with_dtype(cfg, torch.bfloat16) if args.bf16 else cfg
 
 

@@ -16,9 +16,11 @@ camera, flipped once by hand into the dataset's convention);
 (`tools/convert_avatar.py --head 3dmm` writes them from a reference .pt
 checkpoint), converted by utils/convert.py. Without either the params are
 a seeded random init.
-Over several processes (`parallel/distributed.py`) each rank renders
-its share of every batch (the last one padded, as in JAX); the
-primary gathers the frames and alone writes them and the video.
+Over several processes (`parallel/distributed.py`) each data index
+renders its share of every batch (the last one padded, as in JAX); with
+`--n_model` M > 1 the M ranks of a data index split each frame's rays
+(ray sharding). The primary gathers the frames and alone writes them and
+the video.
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ def main(args) -> None:
                               params_len=args.params_len)
     device = common.device_from_args(args)
     distributed.maybe_initialize(args, device)
-    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1),
+                                        args.n_model)
     primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadData3DMM(args.dataset_type, size=args.size, root=root,
@@ -102,7 +105,7 @@ def main(args) -> None:
                                   else it[1] for it in items]).to(device)
             coeffs = torch.stack([it[2] for it in items]).to(device)
             out = mesh_mod.host_gather(
-                heads.t3dmm_forward(params, cfg, coeffs, labels),
+                heads.t3dmm_forward(params, cfg, coeffs, labels, mesh=mesh),
                 mesh)[:len(idxs)]
             if primary:
                 for frame in out.cpu():

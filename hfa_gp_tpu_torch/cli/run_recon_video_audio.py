@@ -15,9 +15,11 @@ frames at a time, writes `{demo_dir}/{demo_name}/%05d.png` and assembles
 audio` writes them from a reference .pt checkpoint), converted by
 utils/convert.py.
 Without either the params are a seeded random init.
-Over several processes (`parallel/distributed.py`) each rank renders
-its share of every batch (the last one padded, as in JAX); the
-primary gathers the frames and alone writes them and the video.
+Over several processes (`parallel/distributed.py`) each data index
+renders its share of every batch (the last one padded, as in JAX); with
+`--n_model` M > 1 the M ranks of a data index split each frame's rays
+(ray sharding). The primary gathers the frames and alone writes them and
+the video.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ def main(args) -> None:
                               smo_size=args.smo_size)
     device = common.device_from_args(args)
     distributed.maybe_initialize(args, device)
-    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1),
+                                        args.n_model)
     primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataAudio(args.dataset_type, size=args.size, root=root,
@@ -99,7 +102,7 @@ def main(args) -> None:
                              else dataset.get_audio(i) for i in mine])
             out = mesh_mod.host_gather(audio_train.sample(
                 params, cfg, torch.from_numpy(wins).to(device), labels,
-                args.smooth), mesh)[:len(idxs)]
+                args.smooth, mesh=mesh), mesh)[:len(idxs)]
             if primary:
                 for frame in out.cpu():
                     save_image(frame, os.path.join(save_path,

@@ -16,9 +16,11 @@ checkpoint), converted by utils/convert.py. Without either the params are a
 seeded random init. `--trace_dir` writes a `torch.profiler` trace of the
 render loop there, with the regions "encoder", "subspace" and "synthesis"
 of each batch named.
-Over several processes (`parallel/distributed.py`) each rank renders
-its share of every batch (the last one padded, as in JAX); the
-primary gathers the frames and alone writes them and the video.
+Over several processes (`parallel/distributed.py`) each data index
+renders its share of every batch (the last one padded, as in JAX); with
+`--n_model` M > 1 the M ranks of a data index split each frame's rays
+(ray sharding). The primary gathers the frames and alone writes them and
+the video.
 """
 
 from __future__ import annotations
@@ -74,8 +76,9 @@ def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
 
 
 def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
-            label: torch.Tensor) -> torch.Tensor:
-    """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3)."""
+            label: torch.Tensor, mesh=None) -> torch.Tensor:
+    """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3);
+    with a model axis on `mesh` its ranks split the rays."""
     with observability.annotate("encoder"):
         weights = heads.rgb_get_weights(params, cfg, image)
     if cfg.out_pose:
@@ -83,14 +86,15 @@ def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
     with observability.annotate("subspace"):
         latent = heads.get_latent(params, weights, cfg)
     with observability.annotate("synthesis"):
-        return heads.get_image(params, cfg, latent, label)
+        return heads.get_image(params, cfg, latent, label, mesh=mesh)
 
 
 def main(args) -> None:
     cfg = common.avatar_config(args, tracing=True)
     device = common.device_from_args(args)
     distributed.maybe_initialize(args, device)
-    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1))
+    mesh = mesh_mod.make_mesh_for_batch(max(args.render_batch, 1),
+                                        args.n_model)
     primary = distributed.is_primary()
     root = f"{args.dataset_root}/{args.dataset}"
     dataset = HeadDataTest(args.dataset_type, size=args.size, root=root,
@@ -111,8 +115,8 @@ def main(args) -> None:
             items = [dataset[i] for i in mine]
             imgs = torch.stack([it[0] for it in items]).to(device)
             labels = torch.stack([it[1] for it in items]).to(device)
-            out = mesh_mod.host_gather(reenact(params, cfg, imgs, labels),
-                                       mesh)[:len(idxs)]
+            out = mesh_mod.host_gather(
+                reenact(params, cfg, imgs, labels, mesh), mesh)[:len(idxs)]
             if primary:
                 for frame in out.cpu():
                     save_image(frame, os.path.join(save_path,

@@ -15,9 +15,11 @@ whose optimizer starts afresh at the switch. Writes under
 `display/{i}source.png` and `checkpoint/{i:06d}`. `--resume_ckpt` takes
 one of those checkpoint files and continues from its step.
 Over several processes (`parallel/distributed.py`, e.g. torchrun) each
-rank decodes and trains on its rows of the seed-synced global batch,
-the gradients are averaged over the ranks, and the primary alone
-writes logs, images and checkpoints.
+data index decodes and trains on its rows of the seed-synced global
+batch, the gradients are averaged over the ranks, and the primary alone
+writes logs, images and checkpoints. With `--n_model` M > 1 the M ranks
+of each data index read the same rows and split each image's rays
+(ray sharding, `models/eg3d/renderer.py`).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def main(args) -> None:
                               smo_size=args.smo_size)
     device = common.device_from_args(args)
     distributed.maybe_initialize(args, device)
-    mesh = mesh_mod.make_mesh_for_batch(args.batch_size)
+    mesh = mesh_mod.make_mesh_for_batch(args.batch_size, args.n_model)
     primary = distributed.is_primary()
     dirs = common.make_dirs(args)
     common.save_args(args, dirs)

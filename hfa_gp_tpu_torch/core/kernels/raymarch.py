@@ -56,15 +56,20 @@ def _march_unclipped(colors: torch.Tensor, densities: torch.Tensor,
 
 
 def ray_march_plain(colors: torch.Tensor, densities: torch.Tensor,
-                    depths: torch.Tensor, *, white_back: bool = False):
+                    depths: torch.Tensor, *, white_back: bool = False,
+                    depth_range=None):
     """The plain PyTorch version of MipRayMarcher2 (softplus clamp).
 
     colors (B, R, N, C), densities and depths (B, R, N, 1) → (rgb (B, R, C)
     in [-1, 1], depth (B, R, 1), weights (B, R, N−1, 1)). Depth is clipped
-    to the whole batch's depth range, as in the JAX package."""
+    to the whole batch's depth range, as in the JAX package, or to
+    `depth_range` (lo, hi) where the caller gives it (the range of a call
+    whose rays are split over ranks)."""
     rgb, depth, weights = _march_unclipped(colors, densities, depths,
                                            white_back)
-    return rgb, depth.clamp(depths.min(), depths.max()), weights
+    lo, hi = depth_range if depth_range is not None \
+        else (depths.min(), depths.max())
+    return rgb, depth.clamp(lo, hi), weights
 
 
 def ray_march_backward_plain(colors: torch.Tensor, densities: torch.Tensor,
@@ -224,7 +229,8 @@ class _RayMarch(torch.autograd.Function):
 
 
 def ray_march(colors: torch.Tensor, densities: torch.Tensor,
-              depths: torch.Tensor, *, white_back: bool = False):
+              depths: torch.Tensor, *, white_back: bool = False,
+              depth_range=None):
     """Same contract as `ray_march_plain`, differentiable in `colors` and
     `densities`.
 
@@ -237,7 +243,7 @@ def ray_march(colors: torch.Tensor, densities: torch.Tensor,
     cotangent."""
     if colors.device.type == "cpu":
         return ray_march_plain(colors, densities, depths,
-                               white_back=white_back)
+                               white_back=white_back, depth_range=depth_range)
     if colors.device.type != "cuda":
         raise ValueError(f"ray_march: unsupported device {colors.device}")
     if depths.requires_grad:
@@ -246,5 +252,6 @@ def ray_march(colors: torch.Tensor, densities: torch.Tensor,
     rgb, depth, weights = _RayMarch.apply(colors, densities, depths)
     if white_back:
         rgb = add_white_back(rgb, weights)
-    lo, hi = torch.aminmax(depths)          # one pass, not two
+    lo, hi = torch.aminmax(depths) if depth_range is None \
+        else depth_range                    # aminmax: one pass, not two
     return rgb, depth.clamp(lo, hi), weights

@@ -7,6 +7,9 @@
 Labels: dataset labels are OpenCV and pass through; sampled cameras are
 OpenGL and are flipped once (`label_convention="opengl"`).
 
+`mesh` (a `parallel.mesh.Mesh`, optional) reaches the EG3D synthesis:
+with a model axis its ranks split each image's rays.
+
 Params: one `ParamTree` with the JAX keys
     {"encoder" | "weights_mlp": ..., "subspace": {bases, delta},
      "generator": <EG3D>}
@@ -129,11 +132,11 @@ def _normalize_label(label: torch.Tensor,
 
 def get_image(params, cfg: AvatarConfig, latent: torch.Tensor,
               label: torch.Tensor, *, label_convention: str = "opencv",
-              noise_mode: str = "const") -> torch.Tensor:
+              noise_mode: str = "const", mesh=None) -> torch.Tensor:
     """(B, num_ws, 512) W+ → (B, 512, 512, 3) image in [-1, 1]."""
     c = _normalize_label(label, label_convention)
     return eg3d_gen.synthesis(params["generator"], cfg.eg3d, latent, c,
-                              noise_mode=noise_mode)["image"]
+                              noise_mode=noise_mode, mesh=mesh)["image"]
 
 
 def rgb_get_weights(params, cfg: AvatarConfig, image: torch.Tensor):
@@ -143,7 +146,7 @@ def rgb_get_weights(params, cfg: AvatarConfig, image: torch.Tensor):
 
 def rgb_forward(params, cfg: AvatarConfig, image: torch.Tensor,
                 label: torch.Tensor, *, person_2: bool = False,
-                label_convention: str = "opencv"):
+                label_convention: str = "opencv", mesh=None):
     """image (B, size, size, 3) in [-1, 1], label (B, 25) → image
     (B, 512, 512, 3) [, pose (B, 25) when cfg.out_pose]; person_2 renders
     through the second subspace."""
@@ -152,7 +155,7 @@ def rgb_forward(params, cfg: AvatarConfig, image: torch.Tensor,
     if cfg.out_pose:
         weights, pose = weights
     img = get_image(params, cfg, get_latent(params, weights, cfg, person_2),
-                    label, label_convention=label_convention)
+                    label, label_convention=label_convention, mesh=mesh)
     return (img, pose) if cfg.out_pose else img
 
 
@@ -164,17 +167,19 @@ def mlp_get_weights(params, cfg: AvatarConfig,
 
 
 def t3dmm_forward(params, cfg: AvatarConfig, coeffs: torch.Tensor,
-                  label: torch.Tensor, *, label_convention: str = "opencv"):
+                  label: torch.Tensor, *, label_convention: str = "opencv",
+                  mesh=None):
     """coeffs (B, params_len), label (B, 25) → image (B, 512, 512, 3)."""
     latent = get_latent(params, mlp_get_weights(params, cfg, coeffs), cfg)
     return get_image(params, cfg, latent, label,
-                     label_convention=label_convention)
+                     label_convention=label_convention, mesh=mesh)
 
 
 def audio_forward(params, cfg: AvatarConfig, aud_code: torch.Tensor,
-                  label: torch.Tensor, *, label_convention: str = "opencv"):
+                  label: torch.Tensor, *, label_convention: str = "opencv",
+                  mesh=None):
     """aud_code (B, dim_aud), the AudioNet/AudioAttNet output; label
     (B, 25) → image (B, 512, 512, 3)."""
     latent = get_latent(params, mlp_get_weights(params, cfg, aud_code), cfg)
     return get_image(params, cfg, latent, label,
-                     label_convention=label_convention)
+                     label_convention=label_convention, mesh=mesh)

@@ -61,12 +61,15 @@ def mapping(params, cfg: EG3DConfig, z: torch.Tensor,
 def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
               noise_mode: str = "const",
               render_generator: torch.Generator | None = None,
-              neural_rendering_resolution: int | None = None
-              ) -> dict[str, torch.Tensor]:
+              neural_rendering_resolution: int | None = None,
+              mesh=None) -> dict[str, torch.Tensor]:
     """ws (B, num_ws, 512) W+ latents; c (B, 25) OpenCV label.
 
     noise_mode "const" or "none"; `render_generator` draws the depth
-    jitter (None: deterministic, the inference path)."""
+    jitter (None: deterministic, the inference path). With a model axis
+    on `mesh` the ranks of its model group split each image's rays
+    (`renderer.render_rays`), which come back whole before the feature
+    image is formed; everything else runs replicated on each rank."""
     b = ws.shape[0]
     res = neural_rendering_resolution or cfg.render.neural_rendering_resolution
     cam2world, intrinsics = cam.unpack_label(c)
@@ -81,7 +84,7 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
 
     feature_samples, depth_samples, _ = rnd.render_rays(
         params["decoder"], cfg.render, planes, ray_origins, ray_directions,
-        generator=render_generator, ray_grid=(res, res))
+        generator=render_generator, ray_grid=(res, res), mesh=mesh)
 
     feature_image = feature_samples.permute(0, 2, 1).reshape(b, -1, res, res)
     rgb_image = feature_image[:, :3]

@@ -20,6 +20,17 @@ backward instead of keeping their activations. The depth jitter of a
 `generator` is drawn once for the whole batch before either, so the
 recomputed forward sees the same depths and a chunked render the same
 jitter as an unchunked one.
+
+`render_rays(..., mesh=...)` with a model axis (`mesh.n_model` = M > 1)
+splits each image's R rays over the ranks of the model group, as the JAX
+package's `RenderConfig.ray_shard_axis` does: rank m renders rays
+[m·R/M, (m+1)·R/M) from the replicated planes and decoder, with its share
+of the jitter that one rank draws for all the rays, clips its depths to
+the range of the whole call (an all-reduce over the group), and the
+outputs are gathered back to all R rays on every rank
+(`parallel.mesh.gather_rays`; the gradients of the planes and the decoder
+are summed over the group, `parallel.mesh.into_render`). It gives what one
+rank rendering all the rays gives.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...core import ops
 from ...core.kernels import raymarch, triplane
+from ...parallel import mesh as mesh_mod
 
 
 @dataclass(frozen=True)
@@ -230,12 +242,17 @@ def sample_importance_windowed(z_vals: torch.Tensor, weights: torch.Tensor,
 
 
 def ray_march(colors: torch.Tensor, densities: torch.Tensor,
-              depths: torch.Tensor, cfg: RenderConfig):
+              depths: torch.Tensor, cfg: RenderConfig, mesh=None):
     """MipRayMarcher2 (softplus density clamp) through the marcher
     kernel's wrapper → (rgb (B,R,C) in [-1, 1], depth (B,R,1), weights
-    (B,R,N−1,1))."""
+    (B,R,N−1,1)). With a model axis on `mesh`, these rays are this rank's
+    share, and the depth is clipped to the range of every rank's depths."""
+    depth_range = None
+    if mesh_mod.ray_shard(mesh):
+        depth_range = mesh_mod.model_min_max(*torch.aminmax(depths), mesh)
     return raymarch.ray_march(colors.contiguous(), densities.contiguous(),
-                              depths.contiguous(), white_back=cfg.white_back)
+                              depths.contiguous(), white_back=cfg.white_back,
+                              depth_range=depth_range)
 
 
 def unify_samples(d1, c1, s1, d2, c2, s2):
@@ -292,9 +309,12 @@ def _render_core(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
                  ray_origins: torch.Tensor, ray_directions: torch.Tensor,
                  jitter_coarse: torch.Tensor | None,
                  jitter_fine: torch.Tensor | None,
-                 ray_grid: tuple[int, int] | None, remat_points: bool):
+                 ray_grid: tuple[int, int] | None, remat_points: bool,
+                 mesh=None):
     """`render_rays` on one set of rays with its jitter drawn already;
-    `remat_points` checkpoints each pass's point evaluation."""
+    `remat_points` checkpoints each pass's point evaluation. With a model
+    axis on `mesh` the last march clips the depth to the range of the
+    whole call (the coarse march's depth is not used)."""
     b, r, _ = ray_origins.shape
 
     def eval_points(depths):
@@ -319,7 +339,7 @@ def _render_core(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
     n_fine = cfg.depth_resolution_importance
     if n_fine == 0:
         rgb, depth, weights = ray_march(colors_c, densities_c, depths_coarse,
-                                        cfg)
+                                        cfg, mesh)
         return rgb, depth, weights.sum(2)
 
     _, _, weights = ray_march(colors_c, densities_c, depths_coarse, cfg)
@@ -337,14 +357,46 @@ def _render_core(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
     depths, colors, densities = unify_samples(
         depths_coarse, colors_c, densities_c, depths_fine, colors_f,
         densities_f)
-    rgb, depth, weights = ray_march(colors, densities, depths, cfg)
+    rgb, depth, weights = ray_march(colors, densities, depths, cfg, mesh)
     return rgb, depth, weights.sum(2)
+
+
+def _grid_rows(ray_grid: tuple[int, int] | None, n: int):
+    """The grid of a run of n consecutive rays of the image `ray_grid`
+    (h, w): (n / w, w) when it is whole rows, else None."""
+    if ray_grid is None or n % ray_grid[1]:
+        return None
+    return n // ray_grid[1], ray_grid[1]
+
+
+def _render_sharded(decoder_params, cfg: RenderConfig, planes, ray_origins,
+                    ray_directions, jitter, ray_grid, remat: bool, mesh):
+    """`render_rays` with a model axis: this rank's share of the rays,
+    gathered back to all of them (see the module's docstring)."""
+    b, r, _ = ray_origins.shape
+    if cfg.ray_chunk and cfg.ray_chunk < r:
+        raise ValueError("ray_chunk with a model axis: ray sharding renders "
+                         "each rank's share of the rays at once")
+    lo, hi = mesh_mod.ray_range(r, mesh)
+    names = [(k, n) for k in ("fc0", "fc1") for n in ("weight", "bias")]
+    planes, *leaves = mesh_mod.into_render(
+        [planes, *(decoder_params[k][n] for k, n in names)], mesh)
+    dec: dict = {"fc0": {}, "fc1": {}}
+    for (k, n), t in zip(names, leaves):
+        dec[k][n] = t
+    mine = [None if t is None else t[:, lo:hi]
+            for t in (ray_origins, ray_directions, *jitter)]
+    outs = _render_core(dec, cfg, planes, *mine, _grid_rows(ray_grid, hi - lo),
+                        remat, mesh)
+    # one all-gather for the three outputs
+    whole = mesh_mod.gather_rays(torch.cat(outs, dim=-1), mesh)
+    return whole.split([t.shape[-1] for t in outs], dim=-1)
 
 
 def render_rays(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
                 ray_origins: torch.Tensor, ray_directions: torch.Tensor,
                 generator: torch.Generator | None = None,
-                ray_grid: tuple[int, int] | None = None):
+                ray_grid: tuple[int, int] | None = None, mesh=None):
     """planes (B, 3, H, W, C); rays (B, R, 3) → (features (B, R, 32),
     depth (B, R, 1), weight sum (B, R, 1)). Two sampler launches and two
     marcher launches per call when depth_resolution_importance > 0. Under
@@ -361,12 +413,24 @@ def render_rays(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
     its core once a chunk), and a chunk of whole image rows keeps the
     grid. With `cfg.remat` under autograd, the backward recomputes each
     pass's point evaluation (sampler launches: two more a call); chunked,
-    it recomputes each whole chunk instead, the marcher included."""
+    it recomputes each whole chunk instead, the marcher included.
+
+    With a model axis on `mesh` (a `parallel.mesh.Mesh`, n_model = M > 1;
+    every rank of the model group calls with the same arguments) each rank
+    renders R/M of the rays, M must divide R, and the launches above
+    happen on each rank on its R/M rays; the result is the whole (B, R, ·)
+    on every rank. A shard of whole image rows keeps `ray_grid`.
+    `ray_chunk` (< R) together with a model axis raises: no CLI asks for
+    both, and JAX's `lax.map` would chunk the global ray index."""
     b, r, _ = ray_origins.shape
     _check_fine(cfg)
     planes = planes.contiguous()
+    # the whole call's jitter on every rank: each takes its share of it
     jitter = _draw_jitter(cfg, b, r, generator, ray_origins.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    if mesh_mod.ray_shard(mesh):
+        return _render_sharded(decoder_params, cfg, planes, ray_origins,
+                               ray_directions, jitter, ray_grid, remat, mesh)
     chunk = cfg.ray_chunk
     if not chunk or chunk >= r:
         return _render_core(decoder_params, cfg, planes, ray_origins,
@@ -374,9 +438,7 @@ def render_rays(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
     if r % chunk:
         raise ValueError(f"ray_chunk ({chunk}) must divide the ray count "
                          f"({r})")
-    grid = None
-    if ray_grid is not None and chunk % ray_grid[1] == 0:
-        grid = (chunk // ray_grid[1], ray_grid[1])
+    grid = _grid_rows(ray_grid, chunk)
 
     def one(o, d, jc, jf):
         return _render_core(decoder_params, cfg, planes, o, d, jc, jf, grid,

@@ -4,7 +4,8 @@
 A `Mesh` is this rank's place in an n_data × n_model grid of ranks and two
 process groups: its data group (the ranks of its model index, one for each
 data index: they split the batch) and its model group (the ranks of its
-data index: they split PartialFC's class table). Ranks are ordered as JAX
+data index: they split PartialFC's class table, or each image's rays in
+the avatars' render). Ranks are ordered as JAX
 orders the devices of a mesh, the model index fastest: rank r is
 (r // n_model, r % n_model).
 
@@ -203,10 +204,19 @@ def data_parallel_step(params, metrics: dict[str, torch.Tensor],
     """After the backward of a loss that is the mean over this rank's
     rows: the gradients of `params` and the detached `metrics` averaged
     over the data axis, so that N ranks at a global batch B step as one
-    rank at B and report its loss terms."""
-    if mesh is None or mesh.data_group is None:
+    rank at B and report its loss terms.
+
+    The gradients join over the whole world, scaled by 1/(n_data·n_model):
+    the ranks of a model group hold equal gradients (the render's
+    boundaries, `into_render`, sum its parts), so the world's mean is the
+    data axis's, and every rank then holds the same bits: the model
+    ranks' replicas cannot drift apart by the card's run-to-run
+    differences."""
+    if mesh is None or mesh.size == 1:
         return metrics
-    join_grads(params, mesh.data_group, 1.0 / mesh.n_data)
+    join_grads(params, world_group(), 1.0 / mesh.size)
+    if mesh.data_group is None:
+        return metrics
     keys = list(metrics)
     vals = all_reduce_(torch.stack([metrics[k].float() for k in keys]),
                        mesh.data_group) / mesh.n_data
@@ -277,3 +287,89 @@ def gather_data(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     if not x.requires_grad:
         return gather_rows(x, mesh.data_group)
     return _GatherData.apply(x, mesh)
+
+
+# -- the render's boundaries under ray sharding --------------------------------
+#
+# Each rank of a model group renders a contiguous share of every image's
+# rays from replicated planes and decoder params; every rank then holds the
+# whole image and the whole loss. Out of the render, the rays' outputs are
+# gathered, and the backward hands each rank the cotangent of its own rays
+# as it is (each rank's copy of the loss is the one loss, so no sum). Into
+# the render, the inputs pass unchanged, and the backward sums their
+# gradients over the model group: each rank's render saw its own rays
+# only, and the sum is what one render of all the rays gives.
+
+
+class _IntoRender(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in gs]), ctx.group)
+        out, off = [], 0
+        for g in gs:
+            out.append(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+        return (None, *out)
+
+
+class _GatherRays(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.r = mesh, x.shape[1]
+        whole = gather_rows(x.transpose(0, 1).contiguous(), mesh.model_group)
+        return whole.transpose(0, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        m, r = ctx.mesh.model_index, ctx.r
+        return g[:, m * r:(m + 1) * r].contiguous(), None
+
+
+def ray_shard(mesh: Mesh | None) -> bool:
+    """Whether `mesh` splits the rays of each image (a model axis)."""
+    return mesh is not None and mesh.model_group is not None
+
+
+def ray_range(n: int, mesh: Mesh) -> tuple[int, int]:
+    """This rank's rays [m·n/M, (m+1)·n/M) of n, for model index m of M;
+    raises where M does not divide n (JAX pads an uneven shard)."""
+    if n % mesh.n_model:
+        raise ValueError(f"ray sharding: {n} rays do not divide over "
+                         f"n_model {mesh.n_model}")
+    local = n // mesh.n_model
+    return mesh.model_index * local, (mesh.model_index + 1) * local
+
+
+def into_render(tensors: list[torch.Tensor], mesh: Mesh | None
+                ) -> list[torch.Tensor]:
+    """The replicated inputs of a ray-sharded render (planes, decoder
+    params), unchanged; in the backward their gradients are summed over the
+    model group, in one all-reduce."""
+    if not ray_shard(mesh) or not torch.is_grad_enabled() \
+            or not any(t.requires_grad for t in tensors):
+        return tensors
+    return list(_IntoRender.apply(mesh.model_group, *tensors))
+
+
+def gather_rays(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """(B, R/M, ·) of this rank's rays → (B, R, ·) of all, in model-index
+    order; the backward returns this rank's rays' cotangent, unsummed."""
+    if not ray_shard(mesh):
+        return x
+    return _GatherRays.apply(x, mesh)
+
+
+def model_min_max(lo: torch.Tensor, hi: torch.Tensor, mesh: Mesh | None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(min of lo, max of hi) over the model group, without gradient."""
+    lo, hi = lo.detach(), hi.detach()
+    if not ray_shard(mesh):
+        return lo, hi
+    both = torch.stack([-lo, hi])       # one MAX all-reduce for both
+    all_reduce_(both, mesh.model_group, dist.ReduceOp.MAX)
+    return -both[0], both[1]

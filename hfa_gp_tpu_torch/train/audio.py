@@ -59,11 +59,12 @@ def encode_audio(params, cfg: heads.AvatarConfig, aud_window: torch.Tensor,
 def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
             real_image: torch.Tensor, label: torch.Tensor,
             aud_window: torch.Tensor, smooth: bool, *,
-            label_convention: str = "opencv"):
+            label_convention: str = "opencv", mesh=None):
     """→ (loss, {"l2_loss", "lpips_loss", "generated"}), as the RGB loss."""
     code = encode_audio(params, cfg, aud_window, smooth)
     generated = heads.audio_forward(params["model"], cfg, code, label,
-                                    label_convention=label_convention)
+                                    label_convention=label_convention,
+                                    mesh=mesh)
     generated = ops.avg_pool_to(generated, cfg.size)
     l2 = (real_image - generated).square().mean()
     lp = lpips_mod.lpips_distance(lpips_params, real_image, generated).mean()
@@ -88,7 +89,7 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
     state.optimizer.zero_grad(set_to_none=True)
     loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
                         aud_window, smooth,
-                        label_convention=label_convention)
+                        label_convention=label_convention, mesh=mesh)
     loss.backward()
     for p in state.params.parameters():      # the unread AudioAttNet
         if p.grad is None:
@@ -104,9 +105,10 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
 
 def sample(params, cfg: heads.AvatarConfig, aud_window: torch.Tensor,
            label: torch.Tensor, smooth: bool, *,
-           label_convention: str = "opencv"):
+           label_convention: str = "opencv", mesh=None):
     """The reenactment forward: audio window(s) → image, no graph."""
     with torch.inference_mode():
         code = encode_audio(params, cfg, aud_window, smooth)
         return heads.audio_forward(params["model"], cfg, code, label,
-                                   label_convention=label_convention)
+                                   label_convention=label_convention,
+                                   mesh=mesh)

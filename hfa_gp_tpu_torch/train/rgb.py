@@ -4,7 +4,8 @@ Loss = L2 + LPIPS on the 512 → size average-pooled render. Eager
 PyTorch, gradients by autograd through the sampler's and
 the marcher's CUDA kernels.
 With a mesh, `train_step` averages the gradients and loss terms over
-its data axis (`mesh.data_parallel_step`).
+its data axis (`mesh.data_parallel_step`); with a model axis on it the
+model group's ranks split the render's rays, each holding the whole loss.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .state import TrainState, apply_generator_freeze
 
 def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
             real_image: torch.Tensor, label: torch.Tensor, *,
-            label_convention: str = "opencv"):
+            label_convention: str = "opencv", mesh=None):
     """real_image (B, size, size, 3) in [-1, 1]; label (B, 25) → (loss,
     {"l2_loss", "lpips_loss", "generated"})."""
     weights = heads.rgb_get_weights(params, cfg, real_image)
@@ -29,7 +30,7 @@ def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
         weights, _pose = weights
     latent = heads.get_latent(params, weights, cfg)
     generated = heads.get_image(params, cfg, latent, label,
-                                label_convention=label_convention)
+                                label_convention=label_convention, mesh=mesh)
     generated = ops.avg_pool_to(generated, cfg.size)
     l2 = (real_image - generated).square().mean()
     lp = lpips_mod.lpips_distance(lpips_params, real_image, generated).mean()
@@ -44,7 +45,7 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
     detached 0-d tensors (no host sync here)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
-                        label_convention=label_convention)
+                        label_convention=label_convention, mesh=mesh)
     loss.backward()
     apply_generator_freeze(state.params, state.step, tune_iter)
     metrics = mesh_mod.data_parallel_step(state.params, {
@@ -56,11 +57,12 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
 
 
 def sample(params, cfg: heads.AvatarConfig, real_image: torch.Tensor,
-           label: torch.Tensor, *, label_convention: str = "opencv"):
+           label: torch.Tensor, *, label_convention: str = "opencv",
+           mesh=None):
     """The trainer's eval forward (the JAX `make_eval_step`): no graph."""
     with torch.inference_mode():
         return heads.rgb_forward(params, cfg, real_image, label,
-                                 label_convention=label_convention)
+                                 label_convention=label_convention, mesh=mesh)
 
 
 def sample_bases(params, cfg: heads.AvatarConfig, weight_value: float = 10.0,

@@ -18,11 +18,13 @@ from .state import TrainState, apply_generator_freeze
 
 def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
             real_image: torch.Tensor, label: torch.Tensor,
-            coeffs: torch.Tensor, *, label_convention: str = "opencv"):
+            coeffs: torch.Tensor, *, label_convention: str = "opencv",
+            mesh=None):
     """real_image (B, size, size, 3) in [-1, 1], label (B, 25), coeffs
     (B, params_len) → (loss, {"l2_loss", "lpips_loss", "generated"})."""
     generated = heads.t3dmm_forward(params, cfg, coeffs, label,
-                                    label_convention=label_convention)
+                                    label_convention=label_convention,
+                                    mesh=mesh)
     generated = ops.avg_pool_to(generated, cfg.size)
     l2 = (real_image - generated).square().mean()
     lp = lpips_mod.lpips_distance(lpips_params, real_image, generated).mean()
@@ -39,7 +41,7 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
     tensors."""
     state.optimizer.zero_grad(set_to_none=True)
     loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
-                        coeffs, label_convention=label_convention)
+                        coeffs, label_convention=label_convention, mesh=mesh)
     loss.backward()
     apply_generator_freeze(state.params, state.step, tune_iter)
     metrics = mesh_mod.data_parallel_step(state.params, {
@@ -51,8 +53,10 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
 
 
 def sample(params, cfg: heads.AvatarConfig, coeffs: torch.Tensor,
-           label: torch.Tensor, *, label_convention: str = "opencv"):
+           label: torch.Tensor, *, label_convention: str = "opencv",
+           mesh=None):
     """The trainer's eval forward: no graph."""
     with torch.inference_mode():
         return heads.t3dmm_forward(params, cfg, coeffs, label,
-                                   label_convention=label_convention)
+                                   label_convention=label_convention,
+                                   mesh=mesh)

@@ -199,26 +199,31 @@ def _avatar_params(data: str, name: str):
     return convert.from_jax(convert.load_npz(os.path.join(data, name)))
 
 
-def avatar_steps(data: str, mesh) -> dict:
+def avatar_steps(data: str, mesh, cfg=None) -> dict:
     """One RGB, 3DMM and audio step (global batch 4) on this rank's rows
-    of the first batch of each loader: its loss terms, the params' sum of
-    absolute values after the update, and the rows it decoded."""
+    of the first batch of each loader, on `cfg` (by default the tiny
+    config): its loss terms, the params' sum of absolute values after the
+    update and a hash of their bytes, and the rows it decoded."""
+    import hashlib
     from hfa_gp_tpu_torch.data.dataset import (HeadData, HeadData3DMM,
                                                HeadDataAudio, process_sharded)
     from hfa_gp_tpu_torch.train import audio as taudio
     from hfa_gp_tpu_torch.train import rgb as trgb
     from hfa_gp_tpu_torch.train import t3dmm as tt3dmm
     from hfa_gp_tpu_torch.train.state import init_state
-    cfg = _tiny_avatar_cfg(dim_shape=8)
+    cfg = _tiny_avatar_cfg(dim_shape=8) if cfg is None else cfg
     lp = _avatar_params(data, "lpips.npz")
     root = os.path.join(data, "ds")
     out = {}
 
     def done(name, state, m, ds):
+        h = hashlib.sha256()
+        for p in state.params.parameters():
+            h.update(p.detach().numpy().tobytes())
         out[name] = {"metrics": {k: float(v) for k, v in m.items()},
                      "chk": float(sum(p.detach().abs().sum(dtype=torch.float64)
                                       for p in state.params.parameters())),
-                     "rows": sorted(ds.rows)}
+                     "sha": h.hexdigest(), "rows": sorted(ds.rows)}
 
     ds = _Recording(HeadData("train", size=64, person="person_3",
                              root=os.path.join(root, "nerface_dataset")))
@@ -301,9 +306,12 @@ WORKERS = {"pfc": _w_pfc, "arcstep": _w_arcstep, "arccli": _w_arccli,
            "avatar": _w_avatar, "reenact": _w_reenact}
 
 
-def _worker_main(argv) -> None:
+def _worker_main(argv, workers: dict | None = None) -> None:
+    """A rank: runs `workers[--worker]` (this file's WORKERS by default)
+    and saves its result as rank{RANK}.pt under --out."""
+    workers = WORKERS if workers is None else workers
     p = argparse.ArgumentParser()
-    p.add_argument("--worker", choices=sorted(WORKERS))
+    p.add_argument("--worker", choices=sorted(workers))
     p.add_argument("--out")
     p.add_argument("--data", default=None)
     p.add_argument("--shape", default="2,1")
@@ -312,7 +320,7 @@ def _worker_main(argv) -> None:
     torch.set_num_threads(1)
     from hfa_gp_tpu_torch.parallel import distributed
     distributed.TIMEOUT = datetime.timedelta(seconds=WORKER_TIMEOUT)
-    result = WORKERS[a.worker](a)
+    result = workers[a.worker](a)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "hfa_gp_tpu"))
     assert not foreign, foreign[:5]
@@ -330,10 +338,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(mode: str, world: int, out: str, *extra: str) -> list:
-    """Run `mode` on `world` ranks; the results of rank 0 … world-1. A rank
-    that fails kills the others, and the group as a whole has
-    SPAWN_TIMEOUT."""
+def spawn(mode: str, world: int, out: str, *extra: str,
+          script: str = __file__) -> list:
+    """Run `mode` of `script` (this file, or another test file whose ranks
+    run `_worker_main` with workers of their own) on `world` ranks; the
+    results of rank 0 … world-1. A rank that fails kills the others, and
+    the group as a whole has SPAWN_TIMEOUT."""
     os.makedirs(out, exist_ok=True)
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -342,7 +352,7 @@ def spawn(mode: str, world: int, out: str, *extra: str) -> list:
     logs = [open(os.path.join(out, f"rank{r}.log"), "w")
             for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--worker", mode,
+        [sys.executable, os.path.abspath(script), "--worker", mode,
          "--out", out, *extra],
         env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, cwd=REPO,
         stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]

@@ -200,8 +200,16 @@ def test_cli_random_init_and_side_by_side(small_cli_config, dataset_root,
 def test_cli_raises_on_what_the_port_does_not_do(small_cli_config,
                                                  dataset_root, tmp_path,
                                                  flags):
-    """The last case: --model_path reads the files the port's trainer
-    writes; a directory (an Orbax checkpoint of the JAX package) raises."""
+    """--n_model 2 splits each frame's rays over 2 ranks: in a world of one
+    rank there is no model axis to lay out, and the mesh raises. The last
+    case: --model_path reads the files the port's trainer writes; a
+    directory (an Orbax checkpoint of the JAX package) raises."""
+    if flags[0] == "--n_model":
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            run_recon_video_rgb.main(_cli_args(dataset_root,
+                                               str(tmp_path / "demo"), *flags))
+        assert not os.path.exists(tmp_path / "demo")
+        return
     with pytest.raises(NotImplementedError):
         run_recon_video_rgb.main(_cli_args(dataset_root,
                                            str(tmp_path / "demo"), *flags))
