@@ -1,0 +1,13 @@
+"""render_ms: device ms a batch of the kernels launched under the port's
+`render` range (`models/eg3d/generator.synthesis`: `render_rays`, its
+sampler and marcher passes and the decoder), over the units run after
+the window under the profiler of host operations (`attribute`)."""
+
+from ..trace import under_ns
+
+
+def read(run):
+    if run.attribution is None:
+        return None
+    ns, n = under_ns(run.attribution, lambda name: name == "render")
+    return ns / 1e6 / run.attribution_units if n else None

@@ -14,8 +14,9 @@ takes a checkpoint file written by the port's trainer
 format; `tools/convert_avatar.py` writes them from a reference .pt
 checkpoint), converted by utils/convert.py. Without either the params are a
 seeded random init. `--trace_dir` writes a `torch.profiler` trace of the
-render loop there, with the regions "encoder", "subspace" and "synthesis"
-of each batch named.
+render loop there, with each batch's region "reenact" and, inside it,
+"encoder", "subspace" and "synthesis" (which holds "backbone", "render"
+and "superres") named.
 Over several processes (`parallel/distributed.py`) each data index
 renders its share of every batch (the last one padded, as in JAX); with
 `--n_model` M > 1 the M ranks of a data index split each frame's rays
@@ -79,14 +80,15 @@ def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
             label: torch.Tensor, mesh=None) -> torch.Tensor:
     """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3);
     with a model axis on `mesh` its ranks split the rays."""
-    with observability.annotate("encoder"):
-        weights = heads.rgb_get_weights(params, cfg, image)
-    if cfg.out_pose:
-        weights, _pose = weights
-    with observability.annotate("subspace"):
-        latent = heads.get_latent(params, weights, cfg)
-    with observability.annotate("synthesis"):
-        return heads.get_image(params, cfg, latent, label, mesh=mesh)
+    with observability.annotate("reenact"):
+        with observability.annotate("encoder"):
+            weights = heads.rgb_get_weights(params, cfg, image)
+        if cfg.out_pose:
+            weights, _pose = weights
+        with observability.annotate("subspace"):
+            latent = heads.get_latent(params, weights, cfg)
+        with observability.annotate("synthesis"):
+            return heads.get_image(params, cfg, latent, label, mesh=mesh)
 
 
 def main(args) -> None:

@@ -25,6 +25,7 @@ import torch
 
 from ...core import camera as cam
 from ...utils.convert import ParamTree
+from ...utils.observability import annotate
 from ..eg3d import generator as eg3d_gen
 from ..eg3d.generator import EG3DConfig
 from . import encoder as enc
@@ -179,7 +180,11 @@ def audio_forward(params, cfg: AvatarConfig, aud_code: torch.Tensor,
                   label: torch.Tensor, *, label_convention: str = "opencv",
                   mesh=None):
     """aud_code (B, dim_aud), the AudioNet/AudioAttNet output; label
-    (B, 25) → image (B, 512, 512, 3)."""
-    latent = get_latent(params, mlp_get_weights(params, cfg, aud_code), cfg)
-    return get_image(params, cfg, latent, label,
-                     label_convention=label_convention, mesh=mesh)
+    (B, 25) → image (B, 512, 512, 3), under the profiler ranges
+    "subspace" and "synthesis"."""
+    with annotate("subspace"):
+        latent = get_latent(params, mlp_get_weights(params, cfg, aud_code),
+                            cfg)
+    with annotate("synthesis"):
+        return get_image(params, cfg, latent, label,
+                         label_convention=label_convention, mesh=mesh)

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ...core import camera as cam
+from ...utils.observability import annotate
 from . import networks as nets
 from . import renderer as rnd
 
@@ -69,28 +70,34 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
     jitter (None: deterministic, the inference path). With a model axis
     on `mesh` the ranks of its model group split each image's rays
     (`renderer.render_rays`), which come back whole before the feature
-    image is formed; everything else runs replicated on each rank."""
+    image is formed; everything else runs replicated on each rank. The
+    three stages are the profiler ranges "backbone", "render" and
+    "superres" (`utils.observability.annotate`)."""
     b = ws.shape[0]
     res = neural_rendering_resolution or cfg.render.neural_rendering_resolution
     cam2world, intrinsics = cam.unpack_label(c)
     ray_origins, ray_directions = cam.generate_rays(cam2world, intrinsics, res)
 
-    planes = nets.backbone_apply(params["backbone"], cfg.backbone, ws,
-                                 noise_mode=noise_mode,
-                                 compute_dtype=cfg.compute_dtype)
-    h, w = planes.shape[2:]
-    planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
-    planes = planes.permute(0, 1, 3, 4, 2)               # (B, 3, H, W, C)
+    with annotate("backbone"):
+        planes = nets.backbone_apply(params["backbone"], cfg.backbone, ws,
+                                     noise_mode=noise_mode,
+                                     compute_dtype=cfg.compute_dtype)
+        h, w = planes.shape[2:]
+        planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
+        planes = planes.permute(0, 1, 3, 4, 2)           # (B, 3, H, W, C)
 
-    feature_samples, depth_samples, _ = rnd.render_rays(
-        params["decoder"], cfg.render, planes, ray_origins, ray_directions,
-        generator=render_generator, ray_grid=(res, res), mesh=mesh)
+    with annotate("render"):
+        feature_samples, depth_samples, _ = rnd.render_rays(
+            params["decoder"], cfg.render, planes, ray_origins,
+            ray_directions, generator=render_generator, ray_grid=(res, res),
+            mesh=mesh)
 
     feature_image = feature_samples.permute(0, 2, 1).reshape(b, -1, res, res)
     rgb_image = feature_image[:, :3]
-    sr_image = nets.superresolution_apply(
-        params["superresolution"], cfg.sr, rgb_image, feature_image, ws,
-        noise_mode="none", compute_dtype=cfg.compute_dtype)
+    with annotate("superres"):
+        sr_image = nets.superresolution_apply(
+            params["superresolution"], cfg.sr, rgb_image, feature_image, ws,
+            noise_mode="none", compute_dtype=cfg.compute_dtype)
     return {"image": sr_image.permute(0, 2, 3, 1),
             "image_raw": rgb_image.permute(0, 2, 3, 1),
             "image_depth": depth_samples.reshape(b, res, res, 1)}

@@ -8,16 +8,17 @@ Prints, for seeded random params and a seeded batch (the inputs of
 chains and the decoder in bf16, as `--bf16` of the CLIs), under inference
 mode:
   * the card's name and power limit (`nvidia-smi`);
-  * the batch's stages timed alone with CUDA events (median over --iters):
-    the encoder, the subspace (QR and latent), and synthesis cut into the
-    rays, the tri-plane backbone, `render_rays` (both sampler and marcher
-    passes and the decoder) and the super-resolution network;
   * the whole batch (`run_recon_video_rgb.reenact`, median over --iters)
     and its frames/s, and the peak device memory;
   * from `torch.profiler` over --iters whole batches: the device time by
     kernel (top 25) and by group, the share of the hand-written kernels,
     and the share of the profiled window in which the device was busy.
-Needs a CUDA card; the kernels are built at first use.
+Needs a CUDA card; the kernels are built at first use. The batch's
+stages inside the benchmark's cells are its per-layer metrics
+`encoder_ms`, `synthesis_ms`, `backbone_ms`, `render_ms`, `superres_ms`
+and `audio_encoder_ms` (`python benchmark/run.py --workload
+rgb_reenact_b8 --seed 1 --seconds 10 --trace 1`), read from the port's
+profiler ranges.
 """
 
 from __future__ import annotations
@@ -31,8 +32,6 @@ from ..cli import common
 from ..cli.run_recon_video_rgb import reenact
 from ..core import camera
 from ..models.avatar import heads
-from ..models.eg3d import networks as nets
-from ..models.eg3d import renderer as rnd
 from .measure import card_line, events_ms
 from .profile_train import OUR_KERNELS, device_report
 
@@ -66,57 +65,11 @@ def main(args) -> None:
              * 2 - 1).to(dev)
     label = camera.flip_yz_label(camera.sample_camera_label(
         None, mode=None)).repeat(args.batch, 1).to(dev)
-    gen, ecfg = params["generator"], cfg.eg3d
-    res = ecfg.render.neural_rendering_resolution
 
     with torch.inference_mode():
         for _ in range(2):                               # warm up, build
             reenact(params, cfg, image, label)
         torch.cuda.synchronize()
-
-        # -- stages, each timed alone with CUDA events
-        out: dict = {}
-
-        def planes_of(ws):
-            p = nets.backbone_apply(gen["backbone"], ecfg.backbone, ws,
-                                    noise_mode="const",
-                                    compute_dtype=ecfg.compute_dtype)
-            h, w = p.shape[2:]
-            return p.reshape(args.batch, 3, -1, h, w).permute(0, 1, 3, 4, 2) \
-                .contiguous()
-
-        stages = {
-            "encoder": lambda: out.update(
-                w=heads.rgb_get_weights(params, cfg, image)),
-            "subspace (QR, latent)": lambda: out.update(
-                ws=heads.get_latent(params, out["w"], cfg)),
-            "rays": lambda: out.update(rays=camera.generate_rays(
-                *camera.unpack_label(label), res)),
-            "tri-plane backbone": lambda: out.update(
-                planes=planes_of(out["ws"])),
-            "render_rays": lambda: out.update(feats=rnd.render_rays(
-                gen["decoder"], ecfg.render, out["planes"], *out["rays"],
-                ray_grid=(res, res))[0]),
-            "super-resolution": lambda: out.update(img=nets.superresolution_apply(
-                gen["superresolution"], ecfg.sr,
-                out["feats"].permute(0, 2, 1).reshape(
-                    args.batch, -1, res, res)[:, :3],
-                out["feats"].permute(0, 2, 1).reshape(args.batch, -1, res,
-                                                      res),
-                out["ws"], noise_mode="none",
-                compute_dtype=ecfg.compute_dtype)),
-        }
-        times: dict[str, list[float]] = {k: [] for k in stages}
-        for _ in range(args.iters):
-            for k, fn in stages.items():
-                times[k].append(events_ms(fn))
-        med = {k: float(np.median(v)) for k, v in times.items()}
-        total = sum(med.values())
-        print(f"stages of one reenactment batch, batch {args.batch}, median "
-              f"of {args.iters} (CUDA events, each stage alone):")
-        for k, v in med.items():
-            print(f"  {k:24s} {v:9.3f} ms  {100 * v / total:5.1f} % of "
-                  f"{total:.3f}")
 
         # -- whole batches: CUDA events, peak memory
         torch.cuda.reset_peak_memory_stats()

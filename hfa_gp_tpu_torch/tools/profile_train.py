@@ -7,15 +7,16 @@ Prints, for seeded random params and a seeded batch in fp32 with TF32 off
 (with `--bf16`: the synthesis chains and the decoder in bf16, as `--bf16`
 of the CLIs; master weights, image, LPIPS and loss stay fp32):
   * the card's name and power limit (`nvidia-smi`);
-  * the step's stages timed with CUDA events (median over --steps): the
-    forward (`train.rgb.loss_fn`, with its sub-stages encoder, subspace,
-    synthesis and loss timed alone under no_grad), the backward, and the
-    optimizer (freeze gate + Adam);
+  * the whole step (CUDA events, median over --steps);
   * from `torch.profiler` over --steps whole steps: the device time by
     kernel (top 25), the share of the four hand-written kernels, and the
     share of the profiled window in which the device was busy;
   * the peak device memory of a step.
-Needs a CUDA card; the kernels are built at first use.
+Needs a CUDA card; the kernels are built at first use. The step's
+stages inside the benchmark's fitting cell are its per-layer metrics
+`forward_ms`, `backward_ms` and `optimizer_ms` (`python benchmark/run.py
+--workload rgb_fit_b2 --seed 1 --seconds 10 --trace 1`), read from the
+port's profiler ranges and autograd's.
 """
 
 from __future__ import annotations
@@ -26,11 +27,11 @@ import numpy as np
 import torch
 
 from ..cli import common
-from ..core import camera, ops
+from ..core import camera
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
 from ..train import rgb
-from ..train.state import apply_generator_freeze, init_state
+from ..train.state import init_state
 from ..utils.convert import ParamTree
 from .measure import card_line, events_ms
 
@@ -94,50 +95,7 @@ def main(args) -> None:
         step()
     torch.cuda.synchronize()
 
-    # -- stages of a step, CUDA events
-    stages: dict[str, list[float]] = {}
-    for _ in range(args.steps):
-        state.optimizer.zero_grad(set_to_none=True)
-        out = {}
-        t_fwd = events_ms(lambda: out.update(loss=rgb.loss_fn(
-            state.params, lp, cfg, image, label)[0]))
-        t_bwd = events_ms(lambda: out["loss"].backward())
-
-        def optimizer():
-            apply_generator_freeze(state.params, state.step, 0)
-            state.optimizer.step()
-
-        t_opt = events_ms(optimizer)
-        with torch.no_grad():
-            t_enc = events_ms(lambda: out.update(
-                w=heads.rgb_get_weights(state.params, cfg, image)))
-            t_sub = events_ms(lambda: out.update(
-                lat=heads.get_latent(state.params, out["w"], cfg)))
-            t_syn = events_ms(lambda: out.update(img=heads.get_image(
-                state.params, cfg, out["lat"], label)))
-
-            def loss_terms():
-                gen = ops.avg_pool_to(out["img"], cfg.size)
-                return (image - gen).square().mean() \
-                    + lpips_mod.lpips_distance(lp, image, gen).mean()
-
-            t_loss = events_ms(loss_terms)
-        for k, v in (("forward", t_fwd), ("backward", t_bwd),
-                     ("optimizer", t_opt), ("fwd: encoder", t_enc),
-                     ("fwd: subspace (QR)", t_sub),
-                     ("fwd: synthesis", t_syn),
-                     ("fwd: pool + L2 + LPIPS", t_loss)):
-            stages.setdefault(k, []).append(v)
-    med = {k: float(np.median(v)) for k, v in stages.items()}
-    whole = med["forward"] + med["backward"] + med["optimizer"]
-    print(f"stages of one training step, batch {args.batch}, median of "
-          f"{args.steps} (CUDA events; the fwd: rows were timed alone under "
-          f"no_grad):")
-    for k, v in med.items():
-        print(f"  {k:26s} {v:9.3f} ms  {100 * v / whole:5.1f} % of "
-              f"{whole:.3f}")
-
-    # -- whole steps: host clock, peak memory
+    # -- whole steps: CUDA events, peak memory
     torch.cuda.reset_peak_memory_stats()
     ms = [events_ms(step) for _ in range(args.steps)]
     print(f"whole step: {float(np.median(ms)):.3f} ms (median of "

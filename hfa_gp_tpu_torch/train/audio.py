@@ -25,6 +25,7 @@ from ..models.avatar import audio as aud
 from ..models.avatar import heads
 from ..parallel import mesh as mesh_mod
 from ..utils.convert import ParamTree
+from ..utils.observability import annotate
 from .state import TrainState, apply_generator_freeze
 
 
@@ -85,30 +86,39 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                mesh=None) -> dict[str, torch.Tensor]:
     """One Adam step of the phase `smooth` in place on `state`; the freeze
     gate applies to the model's generator. Returns the loss terms as
-    detached 0-d tensors."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
-                        aud_window, smooth,
-                        label_convention=label_convention, mesh=mesh)
-    loss.backward()
-    for p in state.params.parameters():      # the unread AudioAttNet
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    apply_generator_freeze(state.params["model"], state.step, tune_iter)
-    metrics = mesh_mod.data_parallel_step(state.params, {
-        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
-        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
-    state.optimizer.step()
-    state.step += 1
+    detached 0-d tensors. Profiler ranges: "train_step" holding
+    "forward", "backward" and "optimizer", as in `train.rgb`."""
+    with annotate("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("forward"):
+            loss, aux = loss_fn(state.params, lpips_params, cfg, real_image,
+                                label, aud_window, smooth,
+                                label_convention=label_convention, mesh=mesh)
+        with annotate("backward"):
+            loss.backward()
+        with annotate("optimizer"):
+            for p in state.params.parameters():   # the unread AudioAttNet
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            apply_generator_freeze(state.params["model"], state.step,
+                                   tune_iter)
+            metrics = mesh_mod.data_parallel_step(state.params, {
+                "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+                "lpips_loss": aux["lpips_loss"].detach()}, mesh)
+            state.optimizer.step()
+        state.step += 1
     return {"l2_loss_3dmm": torch.zeros(()), **metrics}
 
 
 def sample(params, cfg: heads.AvatarConfig, aud_window: torch.Tensor,
            label: torch.Tensor, smooth: bool, *,
            label_convention: str = "opencv", mesh=None):
-    """The reenactment forward: audio window(s) → image, no graph."""
-    with torch.inference_mode():
-        code = encode_audio(params, cfg, aud_window, smooth)
+    """The reenactment forward: audio window(s) → image, no graph; the
+    profiler range "audio_sample" holds "audio_encoder" and
+    `heads.audio_forward`'s ranges."""
+    with torch.inference_mode(), annotate("audio_sample"):
+        with annotate("audio_encoder"):
+            code = encode_audio(params, cfg, aud_window, smooth)
         return heads.audio_forward(params["model"], cfg, code, label,
                                    label_convention=label_convention,
                                    mesh=mesh)

@@ -17,6 +17,7 @@ from ..core import ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
 from ..parallel import mesh as mesh_mod
+from ..utils.observability import annotate
 from .state import TrainState, apply_generator_freeze
 
 
@@ -42,17 +43,25 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                tune_iter: int, *, label_convention: str = "opencv", mesh=None
                ) -> dict[str, torch.Tensor]:
     """One Adam step in place on `state`; returns the step's loss terms as
-    detached 0-d tensors (no host sync here)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
-                        label_convention=label_convention, mesh=mesh)
-    loss.backward()
-    apply_generator_freeze(state.params, state.step, tune_iter)
-    metrics = mesh_mod.data_parallel_step(state.params, {
-        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
-        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
-    state.optimizer.step()
-    state.step += 1
+    detached 0-d tensors (no host sync here). Profiler ranges
+    (`utils.observability.annotate`): "train_step" holding "forward"
+    (`loss_fn`), "backward" and "optimizer" (the freeze gate, the join
+    over the data axis, Adam)."""
+    with annotate("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("forward"):
+            loss, aux = loss_fn(state.params, lpips_params, cfg, real_image,
+                                label, label_convention=label_convention,
+                                mesh=mesh)
+        with annotate("backward"):
+            loss.backward()
+        with annotate("optimizer"):
+            apply_generator_freeze(state.params, state.step, tune_iter)
+            metrics = mesh_mod.data_parallel_step(state.params, {
+                "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+                "lpips_loss": aux["lpips_loss"].detach()}, mesh)
+            state.optimizer.step()
+        state.step += 1
     return metrics
 
 

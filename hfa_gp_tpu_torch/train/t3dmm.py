@@ -13,6 +13,7 @@ from ..core import ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
 from ..parallel import mesh as mesh_mod
+from ..utils.observability import annotate
 from .state import TrainState, apply_generator_freeze
 
 
@@ -38,17 +39,22 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                mesh=None) -> dict[str, torch.Tensor]:
     """One Adam step in place on `state`, the generator frozen while
     step < tune_iter; returns the step's loss terms as detached 0-d
-    tensors."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_fn(state.params, lpips_params, cfg, real_image, label,
-                        coeffs, label_convention=label_convention, mesh=mesh)
-    loss.backward()
-    apply_generator_freeze(state.params, state.step, tune_iter)
-    metrics = mesh_mod.data_parallel_step(state.params, {
-        "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
-        "lpips_loss": aux["lpips_loss"].detach()}, mesh)
-    state.optimizer.step()
-    state.step += 1
+    tensors. Profiler ranges as in `train.rgb.train_step`."""
+    with annotate("train_step"):
+        state.optimizer.zero_grad(set_to_none=True)
+        with annotate("forward"):
+            loss, aux = loss_fn(state.params, lpips_params, cfg, real_image,
+                                label, coeffs,
+                                label_convention=label_convention, mesh=mesh)
+        with annotate("backward"):
+            loss.backward()
+        with annotate("optimizer"):
+            apply_generator_freeze(state.params, state.step, tune_iter)
+            metrics = mesh_mod.data_parallel_step(state.params, {
+                "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
+                "lpips_loss": aux["lpips_loss"].detach()}, mesh)
+            state.optimizer.step()
+        state.step += 1
     return {"l2_loss_3dmm": torch.zeros(()), **metrics}
 
 
