@@ -32,8 +32,11 @@ import os
 
 import torch
 
+from ..core import graphs
 from ..data.dataset import HeadDataTest
+from ..models.avatar import encoder as enc
 from ..models.avatar import heads
+from ..models.avatar import subspace as sub
 from ..parallel import distributed
 from ..parallel import mesh as mesh_mod
 from ..train import checkpoint as ckpt
@@ -76,17 +79,27 @@ def load_params(args, cfg: heads.AvatarConfig, device: torch.device):
                                  device)
 
 
+def _encode(encoder, image: torch.Tensor, use_softmax: bool):
+    return enc.encoder_apply(encoder, image, use_softmax=use_softmax)
+
+
 def reenact(params, cfg: heads.AvatarConfig, image: torch.Tensor,
             label: torch.Tensor, mesh=None) -> torch.Tensor:
     """image (B, size, size, 3), OpenCV label (B, 25) → (B, 512, 512, 3);
-    with a model axis on `mesh` its ranks split the rays."""
+    with a model axis on `mesh` its ranks split the rays. Without one, on
+    the card and with autograd off, the encoder, the subspace and the
+    synthesis' stages replay as CUDA graphs (`core.graphs`)."""
+    graphed = not mesh_mod.ray_shard(mesh)
     with observability.annotate("reenact"):
         with observability.annotate("encoder"):
-            weights = heads.rgb_get_weights(params, cfg, image)
+            weights = graphs.run("encoder", _encode, params["encoder"], image,
+                                 static=(cfg.use_softmax,), enabled=graphed)
         if cfg.out_pose:
             weights, _pose = weights
         with observability.annotate("subspace"):
-            latent = heads.get_latent(params, weights, cfg)
+            latent = graphs.run("subspace", sub.get_latent,
+                                params["subspace"], weights,
+                                static=(cfg.dim,), enabled=graphed)
         with observability.annotate("synthesis"):
             return heads.get_image(params, cfg, latent, label, mesh=mesh)
 

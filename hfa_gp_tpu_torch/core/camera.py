@@ -13,6 +13,8 @@ import math
 import numpy as np
 import torch
 
+from . import ops
+
 FIXED_INTRINSICS = np.array(
     [4.2647, 0.0, 0.5, 0.0, 4.2647, 0.5, 0.0, 0.0, 1.0], dtype=np.float32)
 
@@ -22,16 +24,15 @@ FLIP_MASK[[1, 2, 5, 6, 9, 10]] = -1.0
 
 def flip_yz_label(label: torch.Tensor) -> torch.Tensor:
     """Negate the y/z rotation columns of the packed pose."""
-    return label * torch.as_tensor(FLIP_MASK, dtype=label.dtype,
-                                   device=label.device)
+    return label * ops.device_constant(FLIP_MASK, label.dtype, label.device)
 
 
 def pack_label(cam2world: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) pose → (..., 25) label with the fixed intrinsics."""
     batch = cam2world.shape[:-2]
     pose = cam2world.reshape(*batch, 16)
-    intr = torch.as_tensor(FIXED_INTRINSICS, dtype=pose.dtype,
-                           device=pose.device).expand(*batch, 9)
+    intr = ops.device_constant(FIXED_INTRINSICS, pose.dtype,
+                               pose.device).expand(*batch, 9)
     return torch.cat([pose, intr], dim=-1)
 
 

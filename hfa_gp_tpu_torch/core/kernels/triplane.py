@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import ops
 from . import build
 
 # Launches of the CUDA kernels in this process: forward (`sample_mean`) and
@@ -52,8 +53,8 @@ PLANE_INV = np.linalg.inv(PLANE_AXES)  # (3, 3, 3)
 
 def project_onto_planes(coordinates: torch.Tensor) -> torch.Tensor:
     """(B, M, 3) world coords → (B, 3, M, 2) per-plane uv."""
-    inv = torch.as_tensor(PLANE_INV, dtype=coordinates.dtype,
-                          device=coordinates.device)
+    inv = ops.device_constant(PLANE_INV, coordinates.dtype,
+                              coordinates.device)
     return torch.einsum("bmj,pjk->bpmk", coordinates, inv)[..., :2]
 
 

@@ -76,6 +76,48 @@ def make_fir_kernel(k: Sequence[float] | np.ndarray) -> np.ndarray:
     return k / k.sum()
 
 
+# Host constants kept on the card: a per-call copy from pageable memory
+# would synchronise the host with the card and break a CUDA graph's
+# capture
+_ON_DEVICE: dict = {}
+
+
+def _kept(key, make) -> torch.Tensor:
+    """The tensor `make()` built under `key`, built once: outside inference
+    mode, so that autograd may save it later, and never written to."""
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _ON_DEVICE[key] = make()
+    return t
+
+
+def device_constant(array: np.ndarray, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A NumPy constant as a tensor in `dtype` on `device`, copied from the
+    host once per (values, dtype, device). Callers must not write to it."""
+    return _kept((array.tobytes(), array.shape, array.dtype.str, dtype,
+                  torch.device(device)),
+                 lambda: torch.as_tensor(array, dtype=dtype, device=device))
+
+
+def fir_taps(kernel, gain: float, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """The flipped, gain-scaled 2-D FIR taps (kh, kw) of `kernel` (1-D
+    taps, normalized by `make_fir_kernel`, or a 2-D kernel) in `dtype` on
+    `device`: built in NumPy and copied from the host once per (taps,
+    gain, dtype, device)."""
+    kernel = np.asarray(kernel, np.float32)
+
+    def make():
+        k = make_fir_kernel(kernel) if kernel.ndim == 1 else kernel
+        return torch.as_tensor(np.ascontiguousarray(k[::-1, ::-1]) * gain,
+                               dtype=dtype, device=device)
+
+    return _kept(("fir", kernel.tobytes(), kernel.shape, float(gain), dtype,
+                  torch.device(device)), make)
+
+
 def upfirdn2d(x: torch.Tensor, kernel, *, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0),
               gain: float = 1.0) -> torch.Tensor:
@@ -83,11 +125,10 @@ def upfirdn2d(x: torch.Tensor, kernel, *, up: int = 1, down: int = 1,
 
     Output length per axis: (H·up + pad0 + pad1 − kh) // down + 1. The
     zero-stuffing leaves (up − 1) trailing zeros, as the reference does.
-    The FIR is a true convolution: correlate with the flipped kernel."""
-    kernel = np.asarray(kernel, np.float32)
-    if kernel.ndim == 1:
-        kernel = make_fir_kernel(kernel)
-    kh, kw = kernel.shape
+    The FIR is a true convolution: correlate with the flipped kernel
+    (`fir_taps`)."""
+    k = fir_taps(kernel, gain, x.dtype, x.device)
+    kh, kw = k.shape
     b, c, h, w = x.shape
     if up > 1:
         x = x.reshape(b, c, h, 1, w, 1)
@@ -95,8 +136,6 @@ def upfirdn2d(x: torch.Tensor, kernel, *, up: int = 1, down: int = 1,
         x = x.reshape(b, c, h * up, w * up)
     pad0, pad1 = pad
     x = F.pad(x, (pad0, pad1, pad0, pad1))
-    k = torch.as_tensor(np.ascontiguousarray(kernel[::-1, ::-1]) * gain,
-                        dtype=x.dtype, device=x.device)
     k = k[None, None].expand(c, 1, kh, kw)
     return F.conv2d(x, k, stride=down, groups=c)
 

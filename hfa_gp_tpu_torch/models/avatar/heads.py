@@ -24,6 +24,8 @@ from dataclasses import dataclass, field
 import torch
 
 from ...core import camera as cam
+from ...core import graphs
+from ...parallel import mesh as mesh_mod
 from ...utils.convert import ParamTree
 from ...utils.observability import annotate
 from ..eg3d import generator as eg3d_gen
@@ -176,15 +178,24 @@ def t3dmm_forward(params, cfg: AvatarConfig, coeffs: torch.Tensor,
                      label_convention=label_convention, mesh=mesh)
 
 
+def _mlp_latent(params, driving: torch.Tensor,
+                cfg: AvatarConfig) -> torch.Tensor:
+    return get_latent(params, mlp_get_weights(params, cfg, driving), cfg)
+
+
 def audio_forward(params, cfg: AvatarConfig, aud_code: torch.Tensor,
                   label: torch.Tensor, *, label_convention: str = "opencv",
                   mesh=None):
     """aud_code (B, dim_aud), the AudioNet/AudioAttNet output; label
     (B, 25) → image (B, 512, 512, 3), under the profiler ranges
-    "subspace" and "synthesis"."""
+    "subspace" and "synthesis"; without a model axis on `mesh`, on the
+    card and with autograd off, the subspace replays as a CUDA graph
+    (`core.graphs`), as the synthesis' stages do."""
     with annotate("subspace"):
-        latent = get_latent(params, mlp_get_weights(params, cfg, aud_code),
-                            cfg)
+        latent = graphs.run(
+            "subspace", _mlp_latent, {k: params[k] for k in
+                                      ("weights_mlp", "subspace")},
+            aud_code, static=(cfg,), enabled=not mesh_mod.ray_shard(mesh))
     with annotate("synthesis"):
         return get_image(params, cfg, latent, label,
                          label_convention=label_convention, mesh=mesh)

@@ -19,6 +19,8 @@ from dataclasses import dataclass, field
 import torch
 
 from ...core import camera as cam
+from ...core import graphs
+from ...parallel import mesh as mesh_mod
 from ...utils.observability import annotate
 from . import networks as nets
 from . import renderer as rnd
@@ -59,6 +61,39 @@ def mapping(params, cfg: EG3DConfig, z: torch.Tensor,
                               c, truncation_psi)
 
 
+def _rays(_, c: torch.Tensor, res: int):
+    cam2world, intrinsics = cam.unpack_label(c)
+    return cam.generate_rays(cam2world, intrinsics, res)
+
+
+def _backbone(params, ws: torch.Tensor, cfg: EG3DConfig, noise_mode: str):
+    planes = nets.backbone_apply(params, cfg.backbone, ws,
+                                 noise_mode=noise_mode,
+                                 compute_dtype=cfg.compute_dtype)
+    b, _, h, w = planes.shape
+    planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
+    return planes.permute(0, 1, 3, 4, 2)                # (B, 3, H, W, C)
+
+
+def _render(params, planes: torch.Tensor, ray_origins: torch.Tensor,
+            ray_directions: torch.Tensor, cfg: rnd.RenderConfig, res: int,
+            generator: torch.Generator | None = None, mesh=None):
+    """→ (feature image (B, 32, res, res), depth (B, res, res, 1))."""
+    b = planes.shape[0]
+    feature_samples, depth_samples, _ = rnd.render_rays(
+        params, cfg, planes, ray_origins, ray_directions,
+        generator=generator, ray_grid=(res, res), mesh=mesh)
+    return (feature_samples.permute(0, 2, 1).reshape(b, -1, res, res),
+            depth_samples.reshape(b, res, res, 1))
+
+
+def _superres(params, feature_image: torch.Tensor, ws: torch.Tensor,
+              cfg: EG3DConfig):
+    return nets.superresolution_apply(
+        params, cfg.sr, feature_image[:, :3], feature_image, ws,
+        noise_mode="none", compute_dtype=cfg.compute_dtype)
+
+
 def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
               noise_mode: str = "const",
               render_generator: torch.Generator | None = None,
@@ -72,32 +107,26 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
     (`renderer.render_rays`), which come back whole before the feature
     image is formed; everything else runs replicated on each rank. The
     three stages are the profiler ranges "backbone", "render" and
-    "superres" (`utils.observability.annotate`)."""
-    b = ws.shape[0]
+    "superres" (`utils.observability.annotate`). Without a generator or a
+    model axis, the rays and each of the three stages replay as a CUDA
+    graph where `core.graphs` holds them (on the card, autograd off)."""
     res = neural_rendering_resolution or cfg.render.neural_rendering_resolution
-    cam2world, intrinsics = cam.unpack_label(c)
-    ray_origins, ray_directions = cam.generate_rays(cam2world, intrinsics, res)
-
+    graphed = render_generator is None and not mesh_mod.ray_shard(mesh)
+    ray_origins, ray_directions = graphs.run("rays", _rays, None, c,
+                                             static=(res,), enabled=graphed)
     with annotate("backbone"):
-        planes = nets.backbone_apply(params["backbone"], cfg.backbone, ws,
-                                     noise_mode=noise_mode,
-                                     compute_dtype=cfg.compute_dtype)
-        h, w = planes.shape[2:]
-        planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
-        planes = planes.permute(0, 1, 3, 4, 2)           # (B, 3, H, W, C)
-
+        planes = graphs.run("backbone", _backbone, params["backbone"], ws,
+                            static=(cfg, noise_mode), enabled=graphed)
     with annotate("render"):
-        feature_samples, depth_samples, _ = rnd.render_rays(
-            params["decoder"], cfg.render, planes, ray_origins,
-            ray_directions, generator=render_generator, ray_grid=(res, res),
-            mesh=mesh)
-
-    feature_image = feature_samples.permute(0, 2, 1).reshape(b, -1, res, res)
-    rgb_image = feature_image[:, :3]
+        feature_image, depth_image = graphs.run(
+            "render", _render, params["decoder"], planes, ray_origins,
+            ray_directions, enabled=graphed,
+            static=(cfg.render, res) if graphed
+            else (cfg.render, res, render_generator, mesh))
     with annotate("superres"):
-        sr_image = nets.superresolution_apply(
-            params["superresolution"], cfg.sr, rgb_image, feature_image, ws,
-            noise_mode="none", compute_dtype=cfg.compute_dtype)
+        sr_image = graphs.run("superres", _superres,
+                              params["superresolution"], feature_image, ws,
+                              static=(cfg,), enabled=graphed)
     return {"image": sr_image.permute(0, 2, 3, 1),
-            "image_raw": rgb_image.permute(0, 2, 3, 1),
-            "image_depth": depth_samples.reshape(b, res, res, 1)}
+            "image_raw": feature_image[:, :3].permute(0, 2, 3, 1),
+            "image_depth": depth_image}

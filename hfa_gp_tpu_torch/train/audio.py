@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core import ops
+from ..core import graphs, ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import audio as aud
 from ..models.avatar import heads
@@ -110,15 +110,25 @@ def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
     return {"l2_loss_3dmm": torch.zeros(()), **metrics}
 
 
+def _encode(nets, aud_window: torch.Tensor, cfg: heads.AvatarConfig,
+            smooth: bool) -> torch.Tensor:
+    return encode_audio(nets, cfg, aud_window, smooth)
+
+
 def sample(params, cfg: heads.AvatarConfig, aud_window: torch.Tensor,
            label: torch.Tensor, smooth: bool, *,
            label_convention: str = "opencv", mesh=None):
-    """The reenactment forward: audio window(s) → image, no graph; the
-    profiler range "audio_sample" holds "audio_encoder" and
-    `heads.audio_forward`'s ranges."""
+    """The reenactment forward: audio window(s) → image, no autograd
+    graph; the profiler range "audio_sample" holds "audio_encoder" and
+    `heads.audio_forward`'s ranges. Without a model axis on `mesh`, on the
+    card, each of them replays as a CUDA graph (`core.graphs`)."""
     with torch.inference_mode(), annotate("audio_sample"):
         with annotate("audio_encoder"):
-            code = encode_audio(params, cfg, aud_window, smooth)
+            code = graphs.run(
+                "audio_encoder", _encode, {k: params[k] for k in
+                                           ("audnet", "audattnet")},
+                aud_window, static=(cfg, smooth),
+                enabled=not mesh_mod.ray_shard(mesh))
         return heads.audio_forward(params["model"], cfg, code, label,
                                    label_convention=label_convention,
                                    mesh=mesh)
