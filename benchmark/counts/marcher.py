@@ -16,11 +16,12 @@ def backward_rgb(rays, n, c) -> int:
     return F32 * (rays * n * (c + 2) + rays * c + rays * n * (c + 1))
 
 
-def unit(g: dict, entry: str, b: int) -> dict:
+def unit(config: dict, entry: str, b: int) -> dict:
     """Bytes of one unit's marches: every ray over its coarse samples,
     then over coarse and fine together, {"fwd": …} and, for a step, the
-    second march's backward under the image's cotangent, {"bwd": …}."""
-    rc = g["render"]
+    second march's backward under the image's cotangent, {"bwd": …}, from
+    the configuration's "eg3d" group."""
+    rc = config["eg3d"]["render"]
     rays = b * rc["neural_rendering_resolution"] ** 2
     nc, nf = rc["depth_resolution"], rc["depth_resolution_importance"]
     c = rc["decoder_output_dim"]

@@ -15,11 +15,12 @@ def backward(b, m, h, w, c) -> int:
     return F32 * (b * m * c + b * m * 3 + b * 3 * h * w * c)
 
 
-def unit(g: dict, entry: str, b: int) -> dict:
+def unit(config: dict, entry: str, b: int) -> dict:
     """Bytes of one unit's lookups (a batch served, a step trained): the
     planes sampled at the coarse, then at the fine points of every ray,
-    {"fwd": …} and, for a step, {"bwd": …}. `g` is the "eg3d" group of a
-    configuration."""
+    {"fwd": …} and, for a step, {"bwd": …}, from the configuration's
+    "eg3d" group."""
+    g = config["eg3d"]
     rc, bb = g["render"], g["backbone"]
     rays = rc["neural_rendering_resolution"] ** 2
     res, c = bb["img_resolution"], bb["img_channels"] // 3

@@ -32,7 +32,7 @@ def run(r) -> dict:
     spec = r.adapter.spec(r.config)
     tree, _ = weights.make(spec, r.seed, WEIGHTS_STREAM, r.device)
     params = r.program.wrap(tree)
-    batches = inputs.batches(inputs.pool(r.config, t, r.seed, r.device),
+    batches = inputs.batches(r.adapter.inputs(r.config, t, r.seed, r.device),
                              t["batch"])
     r.mark("weights and inputs")
     for i in range(t["warmup"]):

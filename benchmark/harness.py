@@ -8,6 +8,38 @@ configuration `configs/<config>.json` names the model's adapter
 entry that drives it (`entries/<entry>.py`), and `limits/<cell>.json`
 holds the limit of each number its check compares. A metric is read by
 `metrics/<name before its first dot>.py`.
+
+The adapter contract. An adapter is a module that the entries and
+readers reach only through these names, so that a new model's cell is
+new files alone:
+
+  * `spec(config)` → [(path, shape, kind, arg)]: the weights, in the
+    program's param-tree layout, for `weights.make` (its kinds);
+  * `inputs(config, traffic, seed, device)` → {name: (P, …) tensor}: the
+    pool of inputs, made on the device from the seed, that
+    `inputs.batches` cuts into the batches of the traffic's "batch";
+  * `aux_spec(config)`, optional → a spec or None: a second tree of fixed
+    weights that a loss reads (the avatars' LPIPS), drawn on a stream of
+    its own;
+  * `program(config)`, `reference(config)`, `control(config)`: the system
+    under test, its plain reference, and the reference a precision lower
+    (the control that the check must fail). Each gives `wrap(tree)` and
+    `serve(params, batch)` to be served, or `trainer(tree, aux_tree or
+    None, paths)` to be trained: an object with `leaves` (the trained
+    tensors, in the spec's order of `paths`), `step(batch)` → the loss,
+    and `first_grads()` (the first step's gradients as the optimizer got
+    them, read from its state: Adam's first moment, SGD's momentum);
+  * `flops(config, entry, batch)`: the work of one unit, counted from the
+    shapes, which `metrics/mfu.py` reads;
+  * `kernel_counters()` → {kernel: (forward, backward)}: the program's
+    launch counters, which the roofline readers hold the trace to;
+  * `ALTERED_LEAF`, for a trained model: the path (its end) of the leaf
+    whose gradient `faults.py`'s `altered` scales.
+
+A training configuration adds `configs/<config>.json`, `models/<model>.py`
+with its reference under `reference/` and its counts under `counts/`,
+`traffic/<traffic>.json` naming the `fit` entry, `limits/<cell>.json`,
+any readers under `metrics/`, and its entries in `BENCHMARK.json`.
 """
 
 from __future__ import annotations

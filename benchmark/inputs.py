@@ -1,5 +1,6 @@
-"""The one generator of every cell's inputs: a pool of driving frames or
-audio windows and camera labels, made on the device from the seed.
+"""The avatars' input pool (the `inputs` of `models/hfagp.py`): driving
+frames or audio windows and camera labels, made on the device from the
+seed; and `batches`, which cuts any adapter's pool before the window.
 
 Traffic parameters (`traffic/<traffic>.json`): "pool", the number of
 distinct inputs; "batch"; "pose", the spread of the head's yaw and pitch

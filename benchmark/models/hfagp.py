@@ -1,17 +1,21 @@
 """The HFA-GP avatars (RGB- and audio-driven) for the benchmark.
 
-What the harness needs of a model, for a configuration dict
-(`configs/<config>.json`, "model": "hfagp"):
+The adapter of a configuration dict whose "model" is "hfagp", to the
+contract in `harness.py`:
 
-  * `spec(config)`, `lpips_spec()`: the weights in the port's param-tree
-    layout, for `weights.make`;
+  * `spec(config)`: the weights in the port's param-tree layout, for
+    `weights.make`; `aux_spec(config)`: the second tree, AlexNet LPIPS,
+    which fitting's loss reads and never trains;
+  * `inputs(config, traffic, seed, device)`: `inputs.pool`, the driving
+    frames or audio windows and the camera labels;
   * `program(config)`: the port's entries (the system under test);
   * `reference(config)` and `control(config)`: the plain PyTorch
     reference in fp32, and the same with TF32 on (the control that the
     check has to fail);
   * `flops(config, entry, batch)`: the work of one unit (a batch served,
     a step trained), counted from the shapes;
-  * `kernel_counters()`: the port's launch counters of its kernels.
+  * `kernel_counters()`: the port's launch counters of its kernels;
+  * `ALTERED_LEAF`: the leaf whose gradient `faults.py`'s `altered` scales.
 
 The port is imported inside `program` only, so the reference and the
 counts load without it.
@@ -28,10 +32,12 @@ from ..counts import audio as audio_counts
 from ..counts import eg3d as eg3d_counts
 from ..counts import encoder as encoder_counts
 from ..counts import lpips as lpips_counts
+from ..inputs import pool as inputs  # the adapter's `inputs`
 from ..reference import avatar as ref
 from ..reference import eg3d as ref_eg3d
 
 ENCODER_CHANNELS = encoder_counts.CHANNELS
+ALTERED_LEAF = "superresolution/block0/conv1/weight"
 
 
 # -- weights ---------------------------------------------------------------------
@@ -155,7 +161,9 @@ def spec(config: dict):
         + _generator_spec("model/generator", g)
 
 
-def lpips_spec():
+def aux_spec(config: dict):
+    """Fitting's second tree: the AlexNet LPIPS network, the same for both
+    drivings."""
     out, cin = [], 3
     for i, (cout, k, _, _) in enumerate(ref.LPIPS_CONVS):
         out += [(f"conv{i}/weight", (cout, cin, k, k), "usym",
@@ -235,10 +243,11 @@ class PortTrainer:
         named = dict(self.params.named_parameters())
         self.leaves = [named[p.replace("/", ".")] for p in spec_paths]
 
-    def step(self, image, label):
+    def step(self, batch):
         from hfa_gp_tpu_torch.train import rgb
-        return rgb.train_step(self.state, self.lpips, self.program.cfg, image,
-                              label, self.tune_iter)["loss"]
+        return rgb.train_step(self.state, self.lpips, self.program.cfg,
+                              batch["image"], batch["label"],
+                              self.tune_iter)["loss"]
 
     def first_grads(self):
         """The first step's gradients as the optimizer got them, from Adam's
@@ -300,10 +309,10 @@ class RefTrainer:
         self.adam = ref.Adam(self.leaves, t["lr"], tuple(t["betas"]), t["eps"])
         self.grads = None
 
-    def step(self, image, label):
+    def step(self, batch):
         with tf32(self.reference.lower):
             loss = ref.rgb_loss(self.tree, self.lpips, self.reference.config,
-                                image, label)
+                                batch["image"], batch["label"])
             grads = torch.autograd.grad(loss, self.leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.leaves, grads)]

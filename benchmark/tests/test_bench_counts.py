@@ -56,7 +56,7 @@ def test_forward_flops_match_the_flop_counter(name):
     cfg = c["config"]
     tree, _ = weights.make(hfagp.spec(cfg), 1, 1, "cpu")
     prog = hfagp.program(cfg)
-    batch = inputs.batches(inputs.pool(cfg, c["traffic"], 1, "cpu"), 2)[0]
+    batch = inputs.batches(hfagp.inputs(cfg, c["traffic"], 1, "cpu"), 2)[0]
     with FlopCounterMode(display=False) as fc:
         prog.serve(prog.wrap(tree), batch)
     rc = cfg["eg3d"]["render"]
@@ -71,7 +71,7 @@ def test_forward_flops_match_the_flop_counter(name):
 
 def test_lpips_flops_match_the_flop_counter():
     from hfa_gp_tpu_torch.models import lpips as port_lpips
-    tree, _ = weights.make(hfagp.lpips_spec(), 1, 2, "cpu")
+    tree, _ = weights.make(hfagp.aux_spec(RGB), 1, 2, "cpu")
     x = torch.rand(2, 64, 64, 3) * 2 - 1
     with FlopCounterMode(display=False) as fc:
         port_lpips.lpips_distance(tree, x, x.flip(0))
@@ -79,16 +79,15 @@ def test_lpips_flops_match_the_flop_counter():
 
 
 def test_a_units_bytes_are_its_ops_not_its_launches():
-    g = RGB["eg3d"]
-    fit, serve = sampler.unit(g, "fit", 2), sampler.unit(g, "serve", 8)
+    fit, serve = sampler.unit(RGB, "fit", 2), sampler.unit(RGB, "serve", 8)
     # the coarse and the fine lookup, 48 points a ray each, at 128² rays
     assert fit["fwd"] == 2 * 270_532_608
     assert fit["bwd"] == 2 * sampler.backward(2, 128 ** 2 * 48, 256, 256, 32)
     assert set(serve) == {"fwd"}
-    m = marcher.unit(g, "fit", 2)
+    m = marcher.unit(RGB, "fit", 2)
     assert m["fwd"] == marcher.forward(2 * 128 ** 2, 48, 32) + 444_596_224
     assert m["bwd"] == marcher.backward_rgb(2 * 128 ** 2, 96, 32)
-    assert set(marcher.unit(g, "serve", 1)) == {"fwd"}
+    assert set(marcher.unit(RGB, "serve", 1)) == {"fwd"}
 
 
 class _Run:
@@ -108,7 +107,7 @@ def test_a_roofline_follows_the_ops_through_split_launches(monkeypatch):
     k1, k2 = "triplane_sampler_kernel", "triplane_bwd_kernel"
     whole = _Run([(k1, 0, 100, 0)] * 6 + [(k2, 0, 100, 0)] * 6, (6, 6))
     split = _Run([(k1, 0, 50, 0)] * 12 + [(k2, 0, 50, 0)] * 12, (12, 12))
-    want = 100 * 3 * sum(sampler.unit(RGB["eg3d"], "fit", 2).values()) \
+    want = 100 * 3 * sum(sampler.unit(RGB, "fit", 2).values()) \
         / 1e12 / (1200 / 1e9)
     assert sampler_roofline.read(whole) == pytest.approx(want)
     assert sampler_roofline.read(split) == pytest.approx(want)
@@ -117,5 +116,5 @@ def test_a_roofline_follows_the_ops_through_split_launches(monkeypatch):
     # no backward counted: the forward's bytes alone
     fwd = _Run([(k1, 0, 100, 0)] * 6, (6, 0))
     assert sampler_roofline.read(fwd) == pytest.approx(
-        100 * 3 * sampler.unit(RGB["eg3d"], "fit", 2)["fwd"] / 1e12
+        100 * 3 * sampler.unit(RGB, "fit", 2)["fwd"] / 1e12
         / (600 / 1e9))

@@ -11,6 +11,7 @@ from benchmark import harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+WIDTH = re.compile(r"(_dim|_rank|_size|_channels|_width)$|expansion|per_tok")
 BENCH = harness.manifest()
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
         "end_to_end", "per_layer"}
@@ -79,8 +80,28 @@ def test_every_cell_reports_what_its_metrics_need():
         assert "setup_s" in reports and len(reports) >= 2
         assert any(w in m["workloads"] for m in BENCH["per_layer"])
     layers = {m["layer"] for m in BENCH["per_layer"]}
-    assert layers <= {"device", "whole step", "kernels", "avatar models",
-                      "trainer"}
+    assert layers <= perf_layers()
+
+
+def perf_layers() -> set:
+    """The layers that `PERF.md` §3's table names: the first column of the
+    table whose header begins "| Layer"."""
+    with open(os.path.join(harness.ROOT, "PERF.md")) as f:
+        section = f.read().split("\n## 3.", 1)[1].split("\n## ", 1)[0]
+    names, inside = set(), False
+    for line in section.splitlines():
+        if line.startswith("| Layer"):
+            inside = True
+        elif inside and line.startswith("|"):
+            if not line.startswith("|---"):
+                names.add(line.split("|")[1].strip())
+        elif inside:
+            break
+    return names
+
+
+def test_the_layer_table_is_read():
+    assert {"device", "kernels"} <= perf_layers()
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in BENCH["workloads"]])
@@ -101,4 +122,13 @@ def test_configs_state_source_changes_assumptions_and_precision():
             cfg = json.load(f)
         assert {"source", "precision", "changed", "assumed",
                 "reduced"} <= set(cfg)
-        assert cfg["reduced"] == entry["reduced"] == []
+        # a cut of scale is listed alike in both, is never a width, and
+        # the file states the deployment that the cut stands for
+        reduced = entry["reduced"]
+        assert sorted(cfg["reduced"]) == sorted(reduced)
+        assert len(reduced) <= 16 and len(set(reduced)) == len(reduced)
+        for key in reduced:
+            assert NAME.match(key) and not WIDTH.search(key), key
+        if reduced:
+            deployment = cfg["assumed"].get("deployment")
+            assert isinstance(deployment, str) and deployment.strip()

@@ -19,7 +19,7 @@ def _setup(name, batch=2, seed=3):
     c = tiny.cell(name, batch=batch)
     cfg = c["config"]
     tree, bufs = weights.make(hfagp.spec(cfg), seed, 1, "cpu")
-    batch0 = inputs.batches(inputs.pool(cfg, c["traffic"], seed, "cpu"),
+    batch0 = inputs.batches(hfagp.inputs(cfg, c["traffic"], seed, "cpu"),
                             batch)[0]
     return cfg, tree, bufs, batch0
 
@@ -42,13 +42,12 @@ def test_fitting_steps_match_the_port():
     ref_tree, _ = weights.clone(spec, bufs)
     flat = dict(weights.leaves(ref_tree))
     before = [flat[p].clone() for p in paths]
-    lp, _ = weights.make(hfagp.lpips_spec(), 3, 2, "cpu")
-    batches = inputs.batches(inputs.pool(cfg, c["traffic"], 3, "cpu"), 2)
+    lp, _ = weights.make(hfagp.aux_spec(cfg), 3, 2, "cpu")
+    batches = inputs.batches(hfagp.inputs(cfg, c["traffic"], 3, "cpu"), 2)
     port = hfagp.program(cfg).trainer(tree, lp, paths)
     ref = hfagp.reference(cfg).trainer(ref_tree, lp, paths)
     for k in range(3):
-        lp_, lr_ = (t.step(batches[k]["image"], batches[k]["label"])
-                    for t in (port, ref))
+        lp_, lr_ = (t.step(batches[k]) for t in (port, ref))
         torch.testing.assert_close(lp_, lr_, rtol=1e-5, atol=1e-6)
         if k == 0:
             for g, h in zip(port.first_grads(), ref.first_grads()):

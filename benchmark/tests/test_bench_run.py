@@ -42,7 +42,7 @@ def _faults(name):
                          [f for n in CELLS for f in _faults(n)])
 def test_each_fault_is_caught(name, kind):
     c = tiny.cell(name, **CELLS[name])
-    bad = faults.Faulty(hfagp.program(c["config"]), kind)
+    bad = faults.planted(hfagp, c["config"], kind)
     out, _ = tiny.run(name, seed=11, program=bad, **CELLS[name])
     assert out["correct"] is False, out["checks"]
 

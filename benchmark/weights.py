@@ -1,12 +1,15 @@
 """Weights made on the device from the seed, in a few large draws.
 
 A spec is a list of leaves `(path, shape, kind, arg)`: `path` the
-`/`-joined key of the port's param tree, `kind` one of "randn", "zeros",
-"ones", "usym" (uniform in ±arg), "upos" (uniform in [0, arg)) or "mean"
-(the mean over dim 0 of the leaf at path `arg`). Every leaf is a view into
-one of four flat buffers, drawn by one call each from a generator on the
-device, so the same seed gives the same weights and `clone` copies a
-whole tree in four copies.
+`/`-joined key of the port's param tree, `kind` one of "randn", "normal"
+(N(0, arg²)), "zeros", "ones", "fill" (the constant arg), "usym" (uniform
+in ±arg), "upos" (uniform in [0, arg)) or "mean" (the mean over dim 0 of
+the leaf at path `arg`). Every leaf is a view into one of four flat
+buffers, drawn by one call each from a generator on the device, so the
+same seed gives the same weights and `clone` copies a whole tree in four
+copies. A leaf takes its place in its buffer in the spec's order, so a
+spec that uses neither "normal" nor "fill" draws what it drew before
+either existed.
 """
 
 from __future__ import annotations
@@ -15,20 +18,22 @@ import math
 
 import torch
 
-KINDS = ("randn", "usym", "upos", "zeros", "ones", "mean")
+KINDS = ("randn", "normal", "usym", "upos", "zeros", "ones", "fill",
+         "mean")
 
 
 def generator(seed: int, stream: int, device) -> torch.Generator:
-    """A generator on `device` for one stream of the seed (weights, LPIPS,
-    inputs each draw from their own)."""
+    """A generator on `device` for one stream of the seed (the weights, a
+    second tree and the inputs each draw from their own)."""
     g = torch.Generator(device=device)
     g.manual_seed((seed * 1_000_003 + stream) % 2 ** 63)
     return g
 
 
 def _buffer_of(kind: str) -> str:
-    return {"randn": "randn", "usym": "rand", "upos": "rand", "zeros": "const",
-            "ones": "one", "mean": "const"}[kind]
+    return {"randn": "randn", "normal": "randn", "usym": "rand",
+            "upos": "rand", "zeros": "const", "ones": "one", "fill": "const",
+            "mean": "const"}[kind]
 
 
 def make(spec, seed: int, stream: int, device):
@@ -47,8 +52,10 @@ def make(spec, seed: int, stream: int, device):
         for path, _, kind, arg in spec:
             if kind == "usym":
                 flat[path].mul_(2).sub_(1).mul_(arg)
-            elif kind == "upos":
+            elif kind in ("upos", "normal"):
                 flat[path].mul_(arg)
+            elif kind == "fill":
+                flat[path].fill_(arg)
             elif kind == "mean":
                 flat[path].copy_(flat[arg].mean(dim=0))
     return tree, bufs
