@@ -177,9 +177,12 @@ def _sample_shard_indices(local_lab: torch.Tensor,
                           num_sample: int) -> torch.Tensor:
     """Sorted sampled class indices of one shard: every positive (priority
     2.0 by a scatter-max, so a write to index 0 from a row without a
-    positive can never displace a real class-0 positive) and random
-    negatives. The kept count is max(num_sample, min(B, num_local)), which
-    has room for every distinct positive."""
+    positive can never displace a real class-0 positive), then the
+    negatives with the largest draw, a tie going to the lower class index
+    (a stable descending sort; `torch.topk` breaks ties as it likes, and
+    `torch.rand` draws multiples of 2⁻²⁴, so over millions of classes the
+    k-th draw often ties another). The kept count is max(num_sample, min(B,
+    num_local)), which has room for every distinct positive."""
     b = local_lab.shape[0]
     k = min(num_local, max(num_sample, min(b, num_local)))
     perm = torch.rand((num_local,), generator=generator,
@@ -188,7 +191,7 @@ def _sample_shard_indices(local_lab: torch.Tensor,
     pos = torch.where(has, local_lab, torch.zeros_like(local_lab)).long()
     prio = torch.where(has, 2.0, -math.inf).to(perm.dtype)
     perm = perm.scatter_reduce(0, pos, prio, "amax", include_self=True)
-    index = torch.topk(perm, k).indices
+    index = torch.sort(perm, descending=True, stable=True).indices[:k]
     return torch.sort(index).values
 
 

@@ -8,10 +8,7 @@ width (512-d embeddings, TF32 off; iresnet50 in fp32 unless told other).
 
 Prints, for a seeded state and seeded synthetic batches:
   * the card's name and power limit (`nvidia-smi`);
-  * the step's stages timed with CUDA events (median over --steps): the
-    backbone's forward, the head's forward (for the row-sparse head with
-    its sampling and row gather timed beside it), the backward, the
-    backbone's optimizer and the head's optimizer;
+  * the whole step (CUDA events, median over --steps) and its samples/s;
   * from `torch.profiler` over --steps whole steps: the device time by
     kernel (top 25) and by group, the share of the flash-CE kernels, and
     the share of the profiled window in which the device was busy;
@@ -25,7 +22,14 @@ copies, barriers and exp epilogue alone); without the operands' copies;
 without copies, store and atomics (the FMAs, barriers and exp epilogue
 alone); and without the barrier of each slice. A variant with a part removed computes something else; only its
 time means anything.
-Needs a CUDA card; the kernels are built at first use.
+Needs a CUDA card; the kernels are built at first use. The step's
+stages inside the benchmark's arcface cell are its per-layer metrics
+`forward_ms`, `backward_ms`, `optimizer_ms` and `rows_ms` (the class draw
+and row gather, `sample`, with the rows' update, `head_update`), and
+`ce_roofline` times the flash-CE kernels (`python benchmark/run.py
+--workload arcface_fit_b256 --seed 1 --seconds 10 --trace 1`), read from
+the port's profiler ranges (`train.arcface.make_train_step`) and
+autograd's.
 """
 
 from __future__ import annotations
@@ -37,7 +41,6 @@ import torch
 
 from ..cli import common, train_arcface
 from ..core.kernels import build, flash_ce
-from ..models.arcface import registry
 from ..parallel.partial_fc import PartialFC
 from ..train import arcface as arc
 from .measure import card_line, events_ms, median_ms
@@ -152,7 +155,6 @@ def main(args) -> None:
     pfc = PartialFC(args.num_classes, 512, sample_rate=args.sample_rate,
                     matmul_dtype=torch.bfloat16 if args.dtype == "bf16"
                     else None)
-    sparse = args.sample_rate < 1.0
     adamw = args.optimizer == "adamw"          # chip_smoke.py [23]'s recipe
     tx, fc_tx = arc.make_optimizers(
         100, lr=1e-3 if adamw else 0.1, warmup_steps=2,
@@ -170,49 +172,6 @@ def main(args) -> None:
     for _ in range(2):                                   # warm up, build
         step()
     torch.cuda.synchronize()
-
-    # -- stages of a step, CUDA events (the step of train/arcface.py, cut
-    # at its stage boundaries)
-    stages: dict[str, list[float]] = {}
-    for _ in range(args.steps):
-        state.optimizer.zero_grad(set_to_none=True)
-        out = {}
-        t_bb = events_ms(lambda: out.update(emb=registry.backbone_apply(
-            args.network, state.backbone, state.batch_stats, imgs,
-            train=True, dtype=dtype, generator=gen)[0]))
-        t_sample = 0.0
-        if sparse:
-            def sample():
-                out["index"] = pfc.sample_indices(labs, gen)
-                out["head"] = pfc.take_rows(state.fc_weight, out["index"]) \
-                    .requires_grad_(True)
-            t_sample = events_ms(sample)
-            t_head = events_ms(lambda: out.update(loss=pfc.loss_sampled(
-                out["head"], out["emb"], labs, out["index"])))
-        else:
-            out["head"] = state.fc_weight.detach().requires_grad_(True)
-            t_head = events_ms(lambda: out.update(loss=pfc.loss(
-                out["head"], out["emb"], labs)))
-        t_bwd = events_ms(lambda: out["loss"].backward())
-        t_opt = events_ms(lambda: tx.step(state.optimizer, state.step))
-
-        t_fc = events_ms(lambda: arc.update_head(
-            pfc, fc_tx, state, out["head"], out.get("index")))
-        for k, v in (("backbone forward", t_bb),
-                     ("sampling + row gather", t_sample),
-                     ("head forward (CE)", t_head), ("backward", t_bwd),
-                     ("backbone optimizer", t_opt),
-                     ("head optimizer", t_fc)):
-            stages.setdefault(k, []).append(v)
-    med = {k: float(np.median(v)) for k, v in stages.items()}
-    whole = sum(med.values())
-    print(f"stages of one arcface step, {args.network}, {args.dtype}, "
-          f"{args.optimizer}, {args.num_classes} classes, sample_rate "
-          f"{args.sample_rate}, batch {args.batch}, "
-          f"median of {args.steps} (CUDA events):")
-    for k, v in med.items():
-        print(f"  {k:26s} {v:9.3f} ms  {100 * v / whole:5.1f} % of "
-              f"{whole:.3f}")
 
     # -- whole steps, peak memory
     torch.cuda.reset_peak_memory_stats()

@@ -47,6 +47,7 @@ from ..models.arcface import norm, registry
 from ..models.arcface.scheduler import poly_scheduler
 from ..parallel import mesh as mesh_mod
 from ..parallel.partial_fc import PartialFC
+from ..utils.observability import annotate
 
 
 @dataclass
@@ -236,7 +237,14 @@ def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
     indices (the tests inject another package's).
 
     On `pfc.mesh`, images and labels are the rank's rows of the global
-    batch, and `index` the rank's shard's sampled indices."""
+    batch, and `index` the rank's shard's sampled indices.
+
+    Profiler ranges (`utils.observability.annotate`): "train_step" holding
+    "forward" ("embed": the backbone; "sample": the class draw and the row
+    gather, row-sparse only; "margin_ce": the flash-CE statistics, the
+    margin and the loss), "backward", and "optimizer" (the join over the
+    data axis, the backbone's clip and update, and "head_update": the
+    table's rows and their buffers, updated and scattered back)."""
     sparse = pfc.sample_rate < 1.0
     mesh = pfc.mesh if pfc.mesh is not None else mesh_mod.Mesh()
 
@@ -251,27 +259,37 @@ def make_train_step(pfc: PartialFC, tx: BackboneOptimizer,
                 labels: torch.Tensor,
                 generator: torch.Generator | None = None,
                 index: torch.Tensor | None = None) -> dict[str, Any]:
-        state.optimizer.zero_grad(set_to_none=True)
-        with bn_sync():
-            emb, new_stats = registry.backbone_apply(
-                network, state.backbone, state.batch_stats, images,
-                train=True, dtype=dtype, generator=generator)
-        if sparse:
-            if index is None:
-                index = pfc.sample_indices(labels, generator)
-            head = pfc.take_rows(state.fc_weight, index).requires_grad_(True)
-            loss = pfc.loss_sampled(head, emb, labels, index)
-        else:
-            head = state.fc_weight.detach().requires_grad_(True)
-            loss = pfc.loss(head, emb, labels)
-        loss.backward()
-        # the data axis's parts of the backbone's gradient, before the clip
-        mesh_mod.join_grads(state.backbone, join, 1.0 / mesh.n_model)
-
-        tx.step(state.optimizer, state.step)
-        update_head(pfc, fc_tx, state, head, index if sparse else None)
-        _store_stats(state.batch_stats, new_stats)
-        state.step += 1
+        with annotate("train_step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with annotate("forward"):
+                with annotate("embed"), bn_sync():
+                    emb, new_stats = registry.backbone_apply(
+                        network, state.backbone, state.batch_stats, images,
+                        train=True, dtype=dtype, generator=generator)
+                if sparse:
+                    with annotate("sample"):
+                        if index is None:
+                            index = pfc.sample_indices(labels, generator)
+                        head = pfc.take_rows(state.fc_weight, index) \
+                            .requires_grad_(True)
+                    with annotate("margin_ce"):
+                        loss = pfc.loss_sampled(head, emb, labels, index)
+                else:
+                    head = state.fc_weight.detach().requires_grad_(True)
+                    with annotate("margin_ce"):
+                        loss = pfc.loss(head, emb, labels)
+            with annotate("backward"):
+                loss.backward()
+            with annotate("optimizer"):
+                # the data axis's parts of the backbone's gradient, before
+                # the clip
+                mesh_mod.join_grads(state.backbone, join, 1.0 / mesh.n_model)
+                tx.step(state.optimizer, state.step)
+                with annotate("head_update"):
+                    update_head(pfc, fc_tx, state, head,
+                                index if sparse else None)
+                _store_stats(state.batch_stats, new_stats)
+            state.step += 1
         return {"loss": loss.detach()}
 
     return step_fn

@@ -2,7 +2,8 @@
 `drain`): nothing entered without a recording profile; under one, each
 region kept on `time.time_ns` with its parent and unit on its own thread,
 inside kineto's event of the same name; and the span trees of the
-fitting step, RGB reenactment and audio reenactment at a tiny width."""
+fitting step, RGB reenactment, audio reenactment and the arcface step
+(dense and row-sparse) at a tiny width."""
 
 import threading
 
@@ -17,7 +18,8 @@ from hfa_gp_tpu_torch.models.avatar import heads
 from hfa_gp_tpu_torch.models.eg3d import generator as gen
 from hfa_gp_tpu_torch.models.eg3d import networks as nets
 from hfa_gp_tpu_torch.models.eg3d import renderer as rnd
-from hfa_gp_tpu_torch.train import audio, rgb
+from hfa_gp_tpu_torch.parallel.partial_fc import PartialFC
+from hfa_gp_tpu_torch.train import arcface, audio, rgb
 from hfa_gp_tpu_torch.train.state import init_state
 from hfa_gp_tpu_torch.utils import observability
 from hfa_gp_tpu_torch.utils.convert import ParamTree
@@ -198,3 +200,22 @@ def test_audio_reenactment_gives_its_span_tree():
         ("audio_sample", None), ("audio_encoder", "audio_sample"),
         ("subspace", "audio_sample"), ("synthesis", "audio_sample"),
         *[(s, "synthesis") for s in SYNTHESIS]]
+
+
+@pytest.mark.parametrize("sample_rate", [1.0, 0.25])
+def test_the_arcface_step_gives_its_span_tree(sample_rate):
+    pfc = PartialFC(64, 512, m2=0.0, m3=0.4, sample_rate=sample_rate)
+    tx, fc_tx = arcface.make_optimizers(10)
+    g = torch.Generator().manual_seed(0)
+    state = arcface.init_state(g, pfc, tx, fc_tx, "iresnet18")
+    step = arcface.make_train_step(pfc, tx, fc_tx, "iresnet18")
+    images = torch.rand((4, 112, 112, 3), generator=g) * 2 - 1
+    labels = torch.randint(64, (4,), generator=g)
+    with cpu_profile():
+        step(state, images, labels, g)
+    sample = [("sample", "forward")] if sample_rate < 1 else []
+    assert tree(observability.spans()) == [
+        ("train_step", None), ("forward", "train_step"),
+        ("embed", "forward"), *sample, ("margin_ce", "forward"),
+        ("backward", "train_step"), ("optimizer", "train_step"),
+        ("head_update", "optimizer")]
