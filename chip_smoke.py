@@ -895,6 +895,7 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     phase_kernels_ray_shard(dev, g, {e["name"]: e for e in results})
     results += phase_kernels_flash_ce(dev, g)
     results.append(phase_kernels_probe(dev))
+    results.append(phase_kernels_fir(dev))
     return results
 
 
@@ -1293,6 +1294,93 @@ def phase_kernels_probe(dev: torch.device) -> dict:
     return entry
 
 
+# K9's main-path calls at batch 8: (name, shape, channels-last, up, pad,
+# gain): SR block1's FIR after its transposed conv (1, 8·128, 513², one
+# grouped plane a channel), the backbone's last 96-channel upsample2d of
+# the tri-plane image, and the encoder's first blur (channels-last) before
+# its 3x3 stride-2 conv
+FIR_CALLS = (("sr_block1_fir", (1, 8 * 128, 513, 513), False, 1, (1, 1), 4.0),
+             ("backbone_upsample2d", (8, 96, 128, 128), False, 2, (2, 1),
+              4.0),
+             ("encoder_blur", (8, 64, 256, 256), True, 1, (2, 2), 1.0))
+FIR_RTOL = 1e-6       # of the output's largest magnitude: <= 16 fp32 products
+
+
+def phase_kernels_fir(dev: torch.device) -> dict:
+    """K9 against its plain version and F.conv2d(groups=c) at the main
+    path's shapes, forward and backward; its launches are counted on the
+    paths that run it ([4], [7], ...)."""
+    import torch.nn.functional as F
+
+    from hfa_gp_tpu_torch.core import ops
+    taps = ops.make_fir_kernel([1, 3, 3, 1])
+    g = torch.Generator().manual_seed(SEED)
+    entry = None
+    for name, shape, cl, up, pad, gain in FIR_CALLS:
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        x = torch.randn(shape, generator=g).to(dev).contiguous(
+            memory_format=fmt)
+        kw = dict(up=up, pad=pad, gain=gain)
+        got = ops.upfirdn2d(x, taps, **kw)
+        want = ops.upfirdn2d_plain(x, taps, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        if not rel <= FIR_RTOL or not got.is_contiguous(memory_format=fmt):
+            fail(f"K9 disagrees with its plain version at {name}: {rel}")
+        # backward: the adjoint (up = 2's is the down = 2 kernel)
+        xg = x.clone().requires_grad_(True)
+        cot = torch.randn(got.shape, generator=g).to(dev).contiguous(
+            memory_format=fmt)
+        y = ops.upfirdn2d(xg, taps, **kw)
+        (gk,) = torch.autograd.grad(y, xg, cot)
+        xg = x.clone().requires_grad_(True)
+        (gp,) = torch.autograd.grad(ops.upfirdn2d_plain(xg, taps, **kw), xg,
+                                    cot)
+        rel_bwd = (gk - gp).abs().max().item() / gp.abs().max().item()
+        if not rel_bwd <= FIR_RTOL:
+            fail(f"K9's backward disagrees with autograd at {name}: "
+                 f"{rel_bwd}")
+        del xg, y, gk, gp
+        ms = cuda_time_ms(lambda: ops.upfirdn2d(x, taps, **kw))
+        plain_ms = cuda_time_ms(lambda: ops.upfirdn2d_plain(x, taps, **kw))
+        # the library call: cuDNN's or PyTorch's depthwise convolution on the
+        # input already zero-stuffed and padded (the plain version's last op)
+        b, c, h, w = shape
+        xs = x
+        if up == 2:
+            xs = F.pad(x.reshape(b, c, h, 1, w, 1), (0, 1, 0, 0, 0, 1)) \
+                .reshape(b, c, 2 * h, 2 * w)
+        xs = F.pad(xs, (pad[0], pad[1], pad[0], pad[1])).contiguous(
+            memory_format=fmt)
+        k = ops.fir_taps(taps, gain, torch.float32, dev)[None, None] \
+            .expand(c, 1, 4, 4)
+        library_ms = cuda_time_ms(lambda: F.conv2d(xs, k, groups=c))
+        bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            ops.upfirdn2d(x.requires_grad_(True), taps, **kw), x, cot))
+        x.requires_grad_(False)
+        # up = 2: 4 products an output (polyphase), else 16
+        e = kernel_entry(
+            "upfirdn2d", "hfa_gp_tpu_torch/csrc/upfirdn2d.cu", "none "
+            "(XLA's convolution in hfa_gp_tpu/core/ops.py::upfirdn2d)", err,
+            ms, plain_ms, library_ms, nbytes(x, got),
+            got.numel() * 2 * (4 if up == 2 else 16))
+        print(f"    {name} {tuple(shape)}{' channels-last' if cl else ''}: "
+              f"rel err {rel:.2e}, backward rel err {rel_bwd:.2e}; "
+              f"{100 * e['bound_ms'] / ms:.1f} % of the bound; forward + "
+              f"backward {bwd_ms:.4f} ms", flush=True)
+        e.update(shape=list(shape), channels_last=cl, rel_err=rel,
+                 rel_err_bwd=rel_bwd, fwd_bwd_ms=bwd_ms)
+        if entry is None:
+            entry = e
+        else:
+            entry.setdefault("also", []).append({name: e})
+        del x, got, want, xs, cot
+        torch.cuda.empty_cache()
+    entry["call"] = FIR_CALLS[0][0]
+    return entry
+
+
 def write_dataset(root: str, n: int = 4, size: int = 256,
                   split: str = "test2") -> None:
     """{root}/nerface_dataset/person_3/{split}/cropped_images: n PNGs and
@@ -1329,20 +1417,34 @@ LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
 NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
                "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
                "flash_ce_bwd": 0, "triplane_probe": 0,
-               "triplane_bwd_probe": 0}
+               "triplane_bwd_probe": 0, "upfirdn2d": 0, "upfirdn2d_bwd": 0}
+
+# K9's launches: an RGB unit (reenactment batch or training step) runs 28
+# FIRs (12 encoder blurs, 12 in the backbone, 4 in SR), a synthesis alone
+# (3DMM, audio, the bases' display) 16; a training step adds one backward
+# launch for each, since every FIR's input needs a gradient
+FIR_RGB, FIR_SYNTHESIS = 28, 16
+
+
+def fir(fwd: int, bwd: int = 0) -> dict[str, int]:
+    """K9's forward and backward launch counts, as `read_launches` keys."""
+    return {"upfirdn2d": fwd, "upfirdn2d_bwd": bwd}
 
 
 def reset_launches() -> None:
-    from hfa_gp_tpu_torch.core.kernels import flash_ce, raymarch, triplane
+    from hfa_gp_tpu_torch.core.kernels import (fir, flash_ce, raymarch,
+                                               triplane)
     from hfa_gp_tpu_torch.tools import probe_sampler
     triplane.LAUNCHES = triplane.LAUNCHES_BWD = 0
     raymarch.LAUNCHES = raymarch.LAUNCHES_BWD = 0
     flash_ce.LAUNCHES = flash_ce.LAUNCHES_BWD = 0
     probe_sampler.LAUNCHES = probe_sampler.LAUNCHES_BWD = 0
+    fir.LAUNCHES = fir.LAUNCHES_BWD = 0
 
 
 def read_launches() -> dict[str, int]:
-    from hfa_gp_tpu_torch.core.kernels import flash_ce, raymarch, triplane
+    from hfa_gp_tpu_torch.core.kernels import (fir, flash_ce, raymarch,
+                                               triplane)
     from hfa_gp_tpu_torch.tools import probe_sampler
     return {"triplane_sampler": triplane.LAUNCHES,
             "triplane_sampler_bwd": triplane.LAUNCHES_BWD,
@@ -1351,7 +1453,8 @@ def read_launches() -> dict[str, int]:
             "flash_ce_fwd": flash_ce.LAUNCHES,
             "flash_ce_bwd": flash_ce.LAUNCHES_BWD,
             "triplane_probe": probe_sampler.LAUNCHES,
-            "triplane_bwd_probe": probe_sampler.LAUNCHES_BWD}
+            "triplane_bwd_probe": probe_sampler.LAUNCHES_BWD,
+            "upfirdn2d": fir.LAUNCHES, "upfirdn2d_bwd": fir.LAUNCHES_BWD}
 
 
 def phase_main_path(tmp: str) -> dict[str, int]:
@@ -1400,7 +1503,7 @@ def phase_main_path(tmp: str) -> dict[str, int]:
     if len(finite) != n_batches or not all(finite):
         fail(f"non-finite frames: {finite}")
     expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
-                "ray_marcher": 2 * n_batches}
+                "ray_marcher": 2 * n_batches, **fir(FIR_RGB * n_batches)}
     if launches != expected:
         fail(f"reenactment launched {launches}, expected {expected}")
     return launches
@@ -1522,11 +1625,13 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     # march forward, and only the unified march runs backward, since the
     # coarse march feeds nothing but the detached fine depths. The display
     # adds forward launches only: 2 + 2 for the test frame, and 2 + 2 for
-    # each batch of 8 basis directions.
+    # each batch of 8 basis directions (a synthesis without the encoder).
     n_fwd = 2 * steps + 2 + 2 * -(-n_bases // 8)
     expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
-                "ray_marcher_bwd": steps}
+                "ray_marcher_bwd": steps,
+                **fir(FIR_RGB * (steps + 1)
+                      + FIR_SYNTHESIS * -(-n_bases // 8), FIR_RGB * steps)}
     if launches != expected:
         fail(f"training launched {launches}, expected {expected}")
 
@@ -1562,7 +1667,8 @@ def phase_train_path(tmp: str) -> dict[str, int]:
             [last["l2_loss"], last["lpips_loss"]]).all():
         fail(f"resume started at {args.start_iter}, last record {last}")
     if resumed != {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
-                   "triplane_sampler_bwd": 2, "ray_marcher_bwd": 1}:
+                   "triplane_sampler_bwd": 2, "ray_marcher_bwd": 1,
+                   **fir(FIR_RGB, FIR_RGB)}:
         fail(f"one resumed step launched {resumed}")
 
     # fit → reenact
@@ -2077,7 +2183,8 @@ def phase_3dmm_path(tmp: str) -> dict[str, int]:
     n_fwd = 2 * steps + 2
     expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
-                "ray_marcher_bwd": steps}
+                "ray_marcher_bwd": steps,
+                **fir(FIR_SYNTHESIS * (steps + 1), FIR_SYNTHESIS * steps)}
     if launches != expected:
         fail(f"3DMM training launched {launches}, expected {expected}")
     init = heads.init_avatar_3dmm(
@@ -2162,7 +2269,8 @@ def phase_audio_path(tmp: str) -> dict[str, int]:
         fail(f"the AudAtt optimizer was not reset exactly once: {counts}")
     expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
-                "ray_marcher_bwd": steps}
+                "ray_marcher_bwd": steps,
+                **fir(FIR_SYNTHESIS * steps, FIR_SYNTHESIS * steps)}
     if launches != expected:
         fail(f"audio training launched {launches}, expected {expected}")
     init = audio_train.init_audio_params(
@@ -2759,7 +2867,8 @@ def phase_process_video(tmp: str) -> None:
           f"launches {launches}", flush=True)
     expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
-                "ray_marcher_bwd": steps}
+                "ray_marcher_bwd": steps,
+                **fir(FIR_RGB * steps, FIR_RGB * steps)}
     if launches != expected:
         fail(f"train_rgb on the crops launched {launches}, expected "
              f"{expected}")
@@ -3344,7 +3453,7 @@ def phase_bf16_main_path(tmp: str) -> dict[str, int]:
     if len(finite) != n_batches or not all(finite):
         fail(f"[27] non-finite frames: {finite}")
     expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
-                "ray_marcher": 2 * n_batches}
+                "ray_marcher": 2 * n_batches, **fir(FIR_RGB * n_batches)}
     if launches != expected:
         fail(f"[27] launched {launches}, expected {expected}")
     if len(traces) != 1 or not all(seen.values()):
@@ -3484,7 +3593,7 @@ def phase_remat_ray_chunk(fp32_step: dict) -> dict:
              f"{rels[worst]}")
     remat_expected = {**NO_LAUNCHES, "triplane_sampler": 4,
                       "triplane_sampler_bwd": 2, "ray_marcher": 2,
-                      "ray_marcher_bwd": 1}
+                      "ray_marcher_bwd": 1, **fir(FIR_RGB, FIR_RGB)}
     if launches != remat_expected:
         fail(f"[29] remat step launched {launches}, expected "
              f"{remat_expected}")
@@ -3520,7 +3629,7 @@ def phase_remat_ray_chunk(fp32_step: dict) -> dict:
     if not torch.isfinite(frames["cuda"]).all() or not err <= E2E_RTOL * scale:
         fail(f"[29] ray_chunk batch card vs CPU: {err}")
     chunk_expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_chunks,
-                      "ray_marcher": 2 * n_chunks}
+                      "ray_marcher": 2 * n_chunks, **fir(FIR_RGB)}
     if chunk_launches != chunk_expected:
         fail(f"[29] ray_chunk batch launched {chunk_launches}, expected "
              f"{chunk_expected}")
@@ -3566,6 +3675,9 @@ def phase_person_2_bf16(tmp: str) -> None:
     per_step = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps}
+    rgb_steps = {**per_step, **fir(FIR_RGB * steps, FIR_RGB * steps)}
+    synthesis_steps = {**per_step, **fir(FIR_SYNTHESIS * steps,
+                                         FIR_SYNTHESIS * steps)}
     reset_launches()
     t0 = time.perf_counter()
     train_rgb.main(train_rgb.build_argparser().parse_args(
@@ -3591,8 +3703,8 @@ def phase_person_2_bf16(tmp: str) -> None:
           f"{'subspace_2' in got}, its bases' max abs change from "
           f"load_pti_bases {moved_2:.3e}, subspace's {moved_1:.3e}",
           flush=True)
-    if launches != per_step:
-        fail(f"[30] train_rgb launched {launches}, expected {per_step}")
+    if launches != rgb_steps:
+        fail(f"[30] train_rgb launched {launches}, expected {rgb_steps}")
     if "subspace_2" not in got or moved_2 != 0.0 or not moved_1 > 0.0:
         fail(f"[30] subspace_2: changed {moved_2}, subspace {moved_1}")
     demo = os.path.join(tmp, "demo_p2")
@@ -3620,9 +3732,9 @@ def phase_person_2_bf16(tmp: str) -> None:
         print(f"[30] train_{name.lower()} --bf16: {steps} steps in "
               f"{time.perf_counter() - t0:.2f} s, (l2, lpips) {shown}, "
               f"launches {launches}", flush=True)
-        if launches != per_step:
+        if launches != synthesis_steps:
             fail(f"[30] {name} --bf16 launched {launches}, expected "
-                 f"{per_step}")
+                 f"{synthesis_steps}")
 
 
 
@@ -4153,12 +4265,12 @@ class _Recorder:
 
 
 def render_from_npz(what: str, cli, argv: list[str], owner, fn: str,
-                    params) -> dict:
+                    params, fir_unit: int) -> dict:
     """`cli.main(argv)` (which reads `--model_npz`) with `owner.fn`, its
-    render, recorded: the frames, the launches, and each batch held
-    against `params` (the tree the npz was written from, on the card)
-    rendered directly on the same inputs, both under cuDNN's
-    deterministic algorithms."""
+    render, recorded: the frames, the launches (`fir_unit` of K9's a
+    batch), and each batch held against `params` (the tree the npz was
+    written from, on the card) rendered directly on the same inputs, both
+    under cuDNN's deterministic algorithms."""
     reset_launches()
     t0 = time.perf_counter()
     torch.backends.cudnn.deterministic = True
@@ -4194,7 +4306,8 @@ def render_from_npz(what: str, cli, argv: list[str], owner, fn: str,
     if not max(errs) <= CONVERT_RENDER_RTOL:
         fail(f"[31] {what}: the render from the npz differs by {errs}")
     expected = {**NO_LAUNCHES, "triplane_sampler": 2 * len(rec.calls),
-                "ray_marcher": 2 * len(rec.calls)}
+                "ray_marcher": 2 * len(rec.calls),
+                **fir(fir_unit * len(rec.calls))}
     if launches != expected:
         fail(f"[31] {what} launched {launches}, expected {expected}")
     return launches
@@ -4317,17 +4430,19 @@ def phase_converters(tmp: str) -> dict[str, int]:
                         flags + ["--person", "person_3", "--demo_name",
                                   "rgb", "--model_npz", out["rgb"]],
                         run_recon_video_rgb, "reenact",
-                        params["rgb"].to("cuda")),
+                        params["rgb"].to("cuda"), FIR_RGB),
         render_from_npz("run_recon_video_3dmm", run_recon_video_3dmm,
                         flags + ["--person", "person_3", "--demo_name",
                                   "3dmm", "--model_npz", out["3dmm"]],
-                        heads, "t3dmm_forward", params["3dmm"].to("cuda")),
+                        heads, "t3dmm_forward", params["3dmm"].to("cuda"),
+                        FIR_SYNTHESIS),
         render_from_npz("run_recon_video_audio --smooth",
                         run_recon_video_audio,
                         flags + ["--dataset", "ad_dataset", "--person",
                                   "obama", "--demo_name", "audio",
                                   "--smooth", "--model_npz", out["audio"]],
-                        audio_train, "sample", params["audio"].to("cuda"))]
+                        audio_train, "sample", params["audio"].to("cuda"),
+                        FIR_SYNTHESIS)]
     return {k: sum(n[k] for n in launches) for k in launches[0]}
 
 
@@ -5286,7 +5401,8 @@ def phase_mp_rgb(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[37] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2}
+    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
+                **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:
             fail(f"[37] reenactment rank {r} launched {res['launches']}")
@@ -5392,7 +5508,8 @@ def phase_mp_rays(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[38] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2}
+    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
+                **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:
             fail(f"[38] reenactment rank {r} launched {res['launches']}")

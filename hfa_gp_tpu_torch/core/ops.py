@@ -2,7 +2,8 @@
 
 Layouts: image tensors are NCHW and conv weights OIHW (the JAX package is
 NHWC / HWIO; utils/convert.py transposes its weights). FC weights are
-(out, in) in both packages. Plain PyTorch throughout: convolutions go to
+(out, in) in both packages. Plain PyTorch but for the FIR, which runs the
+hand-written kernel K9 on the card (`upfirdn2d`): convolutions go to
 cuDNN, matrix products to cuBLAS.
 
 Dtypes, as in the JAX package: each op runs in the dtype of its input `x`
@@ -18,6 +19,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .kernels import fir
 
 
 def _channel_view(v: torch.Tensor, ndim: int, dim: int) -> torch.Tensor:
@@ -126,7 +129,27 @@ def upfirdn2d(x: torch.Tensor, kernel, *, up: int = 1, down: int = 1,
     Output length per axis: (H·up + pad0 + pad1 − kh) // down + 1. The
     zero-stuffing leaves (up − 1) trailing zeros, as the reference does.
     The FIR is a true convolution: correlate with the flipped kernel
-    (`fir_taps`)."""
+    (`fir_taps`). up and down are 1 or 2 and the 2-D taps at most 4 x 4,
+    on every device.
+
+    A CUDA tensor in fp32 or bf16 runs the hand-written kernel
+    (`kernels/fir.py`) in one pass, forward and backward, and keeps x's
+    memory layout (contiguous, or channels-last where x's channels lie
+    adjacent in memory); a CPU or float64 tensor takes
+    `upfirdn2d_plain`."""
+    kernel = np.asarray(kernel, np.float32)
+    taps = make_fir_kernel(kernel) if kernel.ndim == 1 else kernel
+    if x.is_cuda and x.dtype != torch.float64:
+        return fir.upfirdn2d(x, taps, up=up, down=down, pad=pad, gain=gain)
+    fir.check(up, down, taps.shape)
+    return upfirdn2d_plain(x, kernel, up=up, down=down, pad=pad, gain=gain)
+
+
+def upfirdn2d_plain(x: torch.Tensor, kernel, *, up: int = 1, down: int = 1,
+                    pad: tuple[int, int] = (0, 0),
+                    gain: float = 1.0) -> torch.Tensor:
+    """The plain PyTorch version of `upfirdn2d`: the zero-stuffed and the
+    padded input as tensors, then a depthwise convolution."""
     k = fir_taps(kernel, gain, x.dtype, x.device)
     kh, kw = k.shape
     b, c, h, w = x.shape
