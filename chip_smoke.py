@@ -17,15 +17,14 @@ result line:
      that take its general paths and on planes with non-finite edges; its
      backward at batch 2 and 8 with the points' layout, without it and on
      shuffled points, on its general paths (C 8, 48, 30, a grazing camera,
-     off-plane points), and its ablation (a time per variant); the marcher
-     at N 96 and 48; its backward against autograd of the plain march at
-     N 96 and 48 under the cotangents of rgb alone, of all three outputs
-     and of none, and on its other routes (C 3, 48, 130, N 1025, and
-     N 2000 with its scratch buffer); the flash-CE kernels also at a batch
-     above one group of rows with ragged class and depth counts, d w bit
-     for bit across two launches, and the backward's ablation (a time per
-     variant), and with bf16 operands (the JAX CLI's default, on the
-     tensor cores) at the main path's shape, se_x, tgt_raw and d w bit for
+     off-plane points); the marcher at N 96 and 48; its backward against
+     autograd of the plain march at N 96 and 48 under the cotangents of
+     rgb alone, of all three outputs and of none, and on its other routes
+     (C 3, 48, 130, N 1025, and N 2000 with its scratch buffer); the
+     flash-CE kernels also at a batch above one group of rows with ragged
+     class and depth counts, d w bit for bit across two launches, and with
+     bf16 operands (the JAX CLI's default, on the tensor cores) at the
+     main path's shape, se_x, tgt_raw and d w bit for
      bit across two launches, timed against a bound whose products run at
      the bf16 rate beside the bf16 `torch.matmul` of the bare product, and
      on their general paths (B 300 d 128, B 384 d 510, d 72, and d 700,
@@ -61,11 +60,9 @@ result line:
      seeded state and batch;
  12. steady-state arcface samples/s and peak device memory at the two
      configurations of 10 (printed, not asserted);
- 13. the sampler probes through their entry point, `hfa_gp_tpu_torch.
-     tools.probe_sampler.main`: the forward's full variant equal to the
-     sampler bit for bit, and a time per variant; with `--backward` the
-     backward's whole variant held to the kernel, a time per variant and
-     per tile;
+ 13. the sampler probe through its entry point, `hfa_gp_tpu_torch.
+     tools.probe_sampler.main`: the full variant equal to the sampler bit
+     for bit, and a time per variant;
  14. the 3DMM-driven training path through `hfa_gp_tpu_torch.cli.
      train_3dmm.main` at full width, batch 2, on a synthetic dataset with
      expressions: 4 steps across --tune_iter, finite losses, the generator
@@ -281,12 +278,17 @@ ARC_GRAD_SMOOTH_RTOL = 1e-3
 #   it must not rise above the first step's by more than this factor
 ARC_LOSS_RISE = 1.05
 
-# the card's peaks for the bounds (NVIDIA H100 SXM data sheet): device
-# memory rate, fp32 outside the tensor cores, and dense bf16 on them (the
-# rate a product of bf16 operands could run at)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
+
+def card_peak(key: str) -> float:
+    """The card's published peak `key` (`benchmark/peaks.json`): the
+    device memory rate, fp32 outside the tensor cores, and dense bf16 on
+    them (the rate a product of bf16 operands could run at)."""
+    from benchmark.metrics import peak as published
+    value = published(key)
+    if value is None:
+        fail(f"benchmark/peaks.json holds no {key} for "
+             f"{torch.cuda.get_device_name(0)}")
+    return value
 
 
 def fail(msg: str) -> None:
@@ -308,9 +310,9 @@ def bound(n_bytes: float, n_flops: float, n_flops_bf16: float = 0.0
     """The least time the card could take: the larger of compulsory bytes
     over the memory rate and the operations over the peak rate for their
     type (fp32 operations, and the products of bf16 operands)."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_flops = (n_flops / PEAK_FP32_FLOPS
-               + n_flops_bf16 / PEAK_BF16_FLOPS) * 1e3
+    t_bytes = n_bytes / card_peak("hbm_bytes_per_s") * 1e3
+    t_flops = (n_flops / card_peak("fp32_flops")
+               + n_flops_bf16 / card_peak("bf16_flops")) * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
 
@@ -496,9 +498,8 @@ def sampler_bwd_cases(dev, g, planes_shape, pts):
 def phase_sampler_backward(dev, g, planes, pts, off) -> dict:
     """K2/K3 at batch 2 and 8 (main path's points with their layout, without
     it, shuffled), off-plane, on its general paths; plain and library-call
-    times; the ablation (a time per variant of the probe)."""
+    times."""
     from hfa_gp_tpu_torch.core.kernels import triplane
-    from hfa_gp_tpu_torch.tools import probe_sampler
     shape = planes.shape
     c = shape[-1]
     cases, want = sampler_bwd_cases(dev, g, shape, pts)
@@ -549,13 +550,6 @@ def phase_sampler_backward(dev, g, planes, pts, off) -> dict:
     print(f"    batch 2: with the layout {times['layout']:.4f} ms, without "
           f"{times['no layout']:.4f} ms, shuffled points "
           f"{times['shuffled']:.4f} ms", flush=True)
-    # what each stage costs: a time per variant of the probe (a variant's
-    # result means nothing)
-    ablation = probe_sampler.ablate_backward(cot, shape, pts, MAIN_LAYOUT)
-    print("    sampler backward, ablation at batch 2 with the layout (ms): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in ablation.items()),
-          flush=True)
-    entry["ablation_ms"] = ablation
     del cases, want
 
     # batch 8, the reenactment path's batch
@@ -1121,14 +1115,6 @@ def phase_kernels_flash_ce(dev: torch.device, g) -> list[dict]:
             ms, plain_ms, None, nbytes(ne, w, lab, ct_se, ct_tgt, *got),
             flops)
         entries["bwd"]["max_err_over_scale"] = rel
-        # what each part of the backward kernel costs: a time per variant
-        # with parts removed (a variant's result means nothing)
-        from hfa_gp_tpu_torch.tools import profile_arcface
-        ablation = profile_arcface.ablate_ce_backward(ne, w, lab, s, ct_se,
-                                                      ct_tgt)
-        print("    flash-CE backward, ablation (ms): " + ", ".join(
-            f"{k} {v:.4f}" for k, v in ablation.items()), flush=True)
-        entries["bwd"]["ablation_ms"] = ablation
         del got, want
         entries.update(flash_ce_bf16_entries(ne, w, lab, s, ct_se, ct_tgt))
         del ne, w, lab
@@ -1414,11 +1400,6 @@ LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
                      "flash_ce_fwd_bf16": (0, 0, 1),
                      "flash_ce_bwd_bf16": (0, 0, 1)}
 
-NO_LAUNCHES = {"triplane_sampler": 0, "triplane_sampler_bwd": 0,
-               "ray_marcher": 0, "ray_marcher_bwd": 0, "flash_ce_fwd": 0,
-               "flash_ce_bwd": 0, "triplane_probe": 0,
-               "triplane_bwd_probe": 0, "upfirdn2d": 0, "upfirdn2d_bwd": 0}
-
 # K9's launches: an RGB unit (reenactment batch or training step) runs 28
 # FIRs (12 encoder blurs, 12 in the backbone, 4 in SR), a synthesis alone
 # (3DMM, audio, the bases' display) 16; a training step adds one backward
@@ -1432,29 +1413,23 @@ def fir(fwd: int, bwd: int = 0) -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    from hfa_gp_tpu_torch.core.kernels import (fir, flash_ce, raymarch,
-                                               triplane)
+    from hfa_gp_tpu_torch.core.kernels import counters
     from hfa_gp_tpu_torch.tools import probe_sampler
-    triplane.LAUNCHES = triplane.LAUNCHES_BWD = 0
-    raymarch.LAUNCHES = raymarch.LAUNCHES_BWD = 0
-    flash_ce.LAUNCHES = flash_ce.LAUNCHES_BWD = 0
-    probe_sampler.LAUNCHES = probe_sampler.LAUNCHES_BWD = 0
-    fir.LAUNCHES = fir.LAUNCHES_BWD = 0
+    counters.reset_launches()
+    probe_sampler.LAUNCHES = 0
 
 
 def read_launches() -> dict[str, int]:
-    from hfa_gp_tpu_torch.core.kernels import (fir, flash_ce, raymarch,
-                                               triplane)
+    """The port's launch counters (`core/kernels/counters.py`) and the
+    sampler probe's."""
+    from hfa_gp_tpu_torch.core.kernels import counters
     from hfa_gp_tpu_torch.tools import probe_sampler
-    return {"triplane_sampler": triplane.LAUNCHES,
-            "triplane_sampler_bwd": triplane.LAUNCHES_BWD,
-            "ray_marcher": raymarch.LAUNCHES,
-            "ray_marcher_bwd": raymarch.LAUNCHES_BWD,
-            "flash_ce_fwd": flash_ce.LAUNCHES,
-            "flash_ce_bwd": flash_ce.LAUNCHES_BWD,
-            "triplane_probe": probe_sampler.LAUNCHES,
-            "triplane_bwd_probe": probe_sampler.LAUNCHES_BWD,
-            "upfirdn2d": fir.LAUNCHES, "upfirdn2d_bwd": fir.LAUNCHES_BWD}
+    return {**counters.launches(), "triplane_probe": probe_sampler.LAUNCHES}
+
+
+def no_launches() -> dict[str, int]:
+    """`read_launches()`'s names, each with 0 launches."""
+    return dict.fromkeys(read_launches(), 0)
 
 
 def phase_main_path(tmp: str) -> dict[str, int]:
@@ -1502,7 +1477,7 @@ def phase_main_path(tmp: str) -> dict[str, int]:
         fail("no video written")
     if len(finite) != n_batches or not all(finite):
         fail(f"non-finite frames: {finite}")
-    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
+    expected = {**no_launches(), "triplane_sampler": 2 * n_batches,
                 "ray_marcher": 2 * n_batches, **fir(FIR_RGB * n_batches)}
     if launches != expected:
         fail(f"reenactment launched {launches}, expected {expected}")
@@ -1627,7 +1602,7 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     # adds forward launches only: 2 + 2 for the test frame, and 2 + 2 for
     # each batch of 8 basis directions (a synthesis without the encoder).
     n_fwd = 2 * steps + 2 + 2 * -(-n_bases // 8)
-    expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
+    expected = {**no_launches(), "triplane_sampler": n_fwd,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_RGB * (steps + 1)
@@ -1666,7 +1641,7 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     if args.start_iter != steps or not np.isfinite(
             [last["l2_loss"], last["lpips_loss"]]).all():
         fail(f"resume started at {args.start_iter}, last record {last}")
-    if resumed != {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
+    if resumed != {**no_launches(), "triplane_sampler": 2, "ray_marcher": 2,
                    "triplane_sampler_bwd": 2, "ray_marcher_bwd": 1,
                    **fir(FIR_RGB, FIR_RGB)}:
         fail(f"one resumed step launched {resumed}")
@@ -1863,7 +1838,7 @@ def phase_arcface_path(tmp: str) -> tuple[dict[str, int], float]:
     check_arcface_losses("dense run", losses, 1_000_000, steps)
     if ckpts != ["000003", "000006"]:
         fail(f"checkpoints {ckpts}")
-    expected = {**NO_LAUNCHES, "flash_ce_fwd": steps, "flash_ce_bwd": steps}
+    expected = {**no_launches(), "flash_ce_fwd": steps, "flash_ce_bwd": steps}
     if launches != expected:
         fail(f"the dense run launched {launches}, expected {expected}")
 
@@ -1880,7 +1855,7 @@ def phase_arcface_path(tmp: str) -> tuple[dict[str, int], float]:
     if last != 8 or saved["step"] != 8 or len(r_losses) != 2 \
             or not np.isfinite(r_losses).all():
         fail(f"resume: latest {last}, step {saved['step']}, {r_losses}")
-    if resumed != {**NO_LAUNCHES, "flash_ce_fwd": 2, "flash_ce_bwd": 2}:
+    if resumed != {**no_launches(), "flash_ce_fwd": 2, "flash_ce_bwd": 2}:
         fail(f"two resumed steps launched {resumed}")
     del saved
 
@@ -2046,8 +2021,8 @@ def phase_arcface_throughput() -> float:
 
 
 def phase_probe_path() -> dict[str, int]:
-    """[13] the sampler probes through their entry point: the forward's
-    stages, then (`--backward`) the backward's variants and tiles."""
+    """[13] the sampler probe through its entry point: a time per
+    variant."""
     from hfa_gp_tpu_torch.tools import probe_sampler
     reset_launches()
     times = probe_sampler.main(["--iters", "10"])
@@ -2058,16 +2033,6 @@ def phase_probe_path() -> dict[str, int]:
         fail(f"probe times {times}")
     if launches["triplane_probe"] < len(probe_sampler.VARIANTS):
         fail(f"the probe launched {launches}")
-    reset_launches()
-    times = probe_sampler.main(["--iters", "10", "--backward"])
-    bwd = read_launches()
-    print(f"     sampler backward probe: {len(times)} timings, launches "
-          f"{bwd}", flush=True)
-    if not all(np.isfinite(t) and t > 0 for t in times.values()):
-        fail(f"backward probe times {times}")
-    if bwd["triplane_bwd_probe"] < len(probe_sampler.BWD_VARIANTS) \
-            + len(probe_sampler.BWD_TILES):
-        fail(f"the backward probe launched {bwd}")
     return launches
 
 
@@ -2181,7 +2146,7 @@ def phase_3dmm_path(tmp: str) -> dict[str, int]:
         fail(f"3DMM checkpoints {ckpts}")
     # per step the RGB step's launches; the display renders one test frame
     n_fwd = 2 * steps + 2
-    expected = {**NO_LAUNCHES, "triplane_sampler": n_fwd,
+    expected = {**no_launches(), "triplane_sampler": n_fwd,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_SYNTHESIS * (steps + 1), FIR_SYNTHESIS * steps)}
@@ -2267,7 +2232,7 @@ def phase_audio_path(tmp: str) -> dict[str, int]:
             or counts["000003"] != {"model": {4}, "audnet": {4},
                                     "audattnet": {steps - nosmo}}:
         fail(f"the AudAtt optimizer was not reset exactly once: {counts}")
-    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+    expected = {**no_launches(), "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_SYNTHESIS * steps, FIR_SYNTHESIS * steps)}
@@ -2676,12 +2641,18 @@ def conv_flops(net: torch.nn.Module, x: torch.Tensor) -> float:
     return total[0]
 
 
+# kernel-name substrings of cuDNN's convolutions, its FFT algorithms'
+# complex products among them
+CONV_NEEDLES = ("cudnn", "implicit_gemm", "dgrad", "wgrad", "fft", "conv",
+                "winograd", "cf32", "gemv2N_kernel<int, int, float2")
+
+
 def phase_facerecon() -> None:
     """[19] the ResNet-50 regressor at batch 16, 224², card against CPU, and
     its device time a batch with cuDNN's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from hfa_gp_tpu_torch.tools.profile_train import GROUPS, on_device
+    from benchmark import trace
     cpu = random_recon_state(torch.Generator().manual_seed(SEED))
     card = random_recon_state(torch.Generator().manual_seed(SEED)).cuda()
     x = torch.rand((16, 3, 224, 224),
@@ -2693,18 +2664,18 @@ def phase_facerecon() -> None:
         t_cpu = time.perf_counter() - t0
         got = card(xc).cpu()
         ms = cuda_time_ms(lambda: card(xc), iters=10)
+        start_ns = time.time_ns()              # the profiler's clock
         with profile(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 card(xc)
             torch.cuda.synchronize()
+        end_ns = time.time_ns()
     err, rel = rel_err(got, want)
     flops = conv_flops(cpu, x[:1]) * x.shape[0]
-    needles = dict(GROUPS)["convolution (cuDNN, depthwise, FFT)"]
-    per = [(float(e.self_device_time_total), e.key)
-           for e in prof.key_averages() if on_device(e)]
-    total = sum(us for us, _ in per)
-    conv = sum(us for us, k in per if any(n in k for n in needles))
+    window = trace.from_profiler(prof, (start_ns, end_ns))
+    total = sum(e - s for _, s, e, _ in window.kernels)
+    conv, _ = trace.kernel_ns(window, CONV_NEEDLES)
     print(f"[19] face recon (ResNet-50) batch 16 at 224²: card vs CPU max abs "
           f"error {err:.3e}, {rel:.3e} of the scale "
           f"{want.abs().max().item():.3f} (bound {PREPROC_RTOL:g}); "
@@ -2746,10 +2717,10 @@ def phase_process_video(tmp: str) -> None:
     from PIL import Image
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark import trace
     from hfa_gp_tpu_torch.cli import process_video, train_rgb
     from hfa_gp_tpu_torch.data.dataset import HeadData
     from hfa_gp_tpu_torch.preprocess import pipeline
-    from hfa_gp_tpu_torch.tools.profile_train import device_busy_us
     from hfa_gp_tpu_torch.preprocess import convert, pose
     from hfa_gp_tpu_torch.utils.convert import load_npz
     n = PREPROC_FRAMES
@@ -2776,6 +2747,7 @@ def phase_process_video(tmp: str) -> None:
     clock = StageClock(pipeline, stages, sync=True)
     reset_launches()
     try:
+        start_ns = time.time_ns()              # the profiler's clock
         with profile(activities=[ProfilerActivity.CPU,
                                ProfilerActivity.CUDA]) as prof:
             set_tf32(True)
@@ -2783,12 +2755,14 @@ def phase_process_video(tmp: str) -> None:
             process_video.main(args)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+        end_ns = time.time_ns()
     finally:
         clock.close()
     launches = read_launches()
     if tf32_left_on():
         fail("cli.process_video left TF32 on")
-    busy_us, _ = device_busy_us(prof)
+    busy_us = trace.busy_ns(trace.from_profiler(prof, (start_ns, end_ns))) \
+        / 1e3
     crops = sorted(glob.glob(os.path.join(out, "*.png")))
     sizes = {Image.open(p).size for p in crops}
     labels, cams = read_chain_outputs(out)
@@ -2842,7 +2816,7 @@ def phase_process_video(tmp: str) -> None:
              f"{cam_err}")
     if not moved > 0.01:
         fail(f"the labels do not depend on the regressor: {moved}")
-    if launches != NO_LAUNCHES:
+    if launches != no_launches():
         fail(f"a hand-written kernel ran on the preprocessing path: "
              f"{launches}")
     img, label = HeadData("train", size=256, root=os.path.join(
@@ -2865,7 +2839,7 @@ def phase_process_video(tmp: str) -> None:
                          os.path.join(exp, "preproc"), steps)
     print(f"    train_rgb on the crops: {steps} steps, (l2, lpips) {shown}, "
           f"launches {launches}", flush=True)
-    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+    expected = {**no_launches(), "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_RGB * steps, FIR_RGB * steps)}
@@ -2953,8 +2927,8 @@ def phase_extract_audio(tmp: str) -> None:
           f"{head_ms:.2f}), LSTM {lstm_ms:.2f} ms ({vec.shape[0]} steps, "
           f"both directions: {1e3 * lstm_ms / vec.shape[0]:.1f} µs a step, "
           f"whose recurrent weights ({w_hh / 2**20:.0f} MiB) take "
-          f"{1e6 * w_hh / PEAK_BYTES_PER_S:.1f} µs to read at the memory "
-          f"rate); peak device memory {peak / 2**30:.3f} GiB",
+          f"{1e6 * w_hh / card_peak('hbm_bytes_per_s'):.1f} µs to read at "
+          f"the memory rate); peak device memory {peak / 2**30:.3f} GiB",
           flush=True)
     if not rel <= PREPROC_RTOL:
         fail(f"DeepSpeech card vs CPU: {rel} of the scale")
@@ -3033,7 +3007,7 @@ def phase_arcface_family(tag: int) -> dict:
           flush=True)
     check_arcface_losses(f"[{tag}] {network}", losses, args.num_classes,
                          steps)
-    expected = {**NO_LAUNCHES, "flash_ce_fwd": steps, "flash_ce_bwd": steps}
+    expected = {**no_launches(), "flash_ce_fwd": steps, "flash_ce_bwd": steps}
     if launches != expected:
         fail(f"[{tag}] {network} launched {launches}, expected {expected}")
     if network.startswith("vit"):
@@ -3196,7 +3170,7 @@ def phase_val_bin_export(tmp: str) -> dict:
     if not {"model.pt2", "model.npz", "model_cost.json"} <= set(files) \
             or not cost["flops"] > 0:
         fail(f"--export wrote {files}, {cost}")
-    if launches != {**NO_LAUNCHES, "flash_ce_fwd": steps,
+    if launches != {**no_launches(), "flash_ce_fwd": steps,
                     "flash_ce_bwd": steps}:
         fail(f"[25] launched {launches}")
 
@@ -3452,7 +3426,7 @@ def phase_bf16_main_path(tmp: str) -> dict[str, int]:
                n_frames)
     if len(finite) != n_batches or not all(finite):
         fail(f"[27] non-finite frames: {finite}")
-    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_batches,
+    expected = {**no_launches(), "triplane_sampler": 2 * n_batches,
                 "ray_marcher": 2 * n_batches, **fir(FIR_RGB * n_batches)}
     if launches != expected:
         fail(f"[27] launched {launches}, expected {expected}")
@@ -3591,7 +3565,7 @@ def phase_remat_ray_chunk(fp32_step: dict) -> dict:
             or not rels[worst] <= REMAT_GRAD_RTOL:
         fail(f"[29] remat step: loss {l1} vs {l0}, worst gradient {worst} "
              f"{rels[worst]}")
-    remat_expected = {**NO_LAUNCHES, "triplane_sampler": 4,
+    remat_expected = {**no_launches(), "triplane_sampler": 4,
                       "triplane_sampler_bwd": 2, "ray_marcher": 2,
                       "ray_marcher_bwd": 1, **fir(FIR_RGB, FIR_RGB)}
     if launches != remat_expected:
@@ -3628,7 +3602,7 @@ def phase_remat_ray_chunk(fp32_step: dict) -> dict:
           f"{secs['cpu']:.2f} s", flush=True)
     if not torch.isfinite(frames["cuda"]).all() or not err <= E2E_RTOL * scale:
         fail(f"[29] ray_chunk batch card vs CPU: {err}")
-    chunk_expected = {**NO_LAUNCHES, "triplane_sampler": 2 * n_chunks,
+    chunk_expected = {**no_launches(), "triplane_sampler": 2 * n_chunks,
                       "ray_marcher": 2 * n_chunks, **fir(FIR_RGB)}
     if chunk_launches != chunk_expected:
         fail(f"[29] ray_chunk batch launched {chunk_launches}, expected "
@@ -3672,7 +3646,7 @@ def phase_person_2_bf16(tmp: str) -> None:
                     "--tune_iter", "0", "--device", "cuda", "--iter",
                     str(steps), "--display_freq", "100", "--save_freq",
                     str(steps), "--bf16"]
-    per_step = {**NO_LAUNCHES, "triplane_sampler": 2 * steps,
+    per_step = {**no_launches(), "triplane_sampler": 2 * steps,
                 "ray_marcher": 2 * steps, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps}
     rgb_steps = {**per_step, **fir(FIR_RGB * steps, FIR_RGB * steps)}
@@ -4305,7 +4279,7 @@ def render_from_npz(what: str, cli, argv: list[str], owner, fn: str,
           f"{default:.3e})", flush=True)
     if not max(errs) <= CONVERT_RENDER_RTOL:
         fail(f"[31] {what}: the render from the npz differs by {errs}")
-    expected = {**NO_LAUNCHES, "triplane_sampler": 2 * len(rec.calls),
+    expected = {**no_launches(), "triplane_sampler": 2 * len(rec.calls),
                 "ray_marcher": 2 * len(rec.calls),
                 **fir(fir_unit * len(rec.calls))}
     if launches != expected:
@@ -4536,7 +4510,7 @@ def phase_rec_path(tmp: str, synthetic_sps: dict) -> dict[str, int]:
     check_arcface_losses("--rec run", losses, 1_000_000, REC_STEPS)
     if len(equal) != REC_STEPS or not all(equal):
         fail(f"[32] the card's batches differ from the CPU decode: {equal}")
-    expected = {**NO_LAUNCHES, "flash_ce_fwd": REC_STEPS,
+    expected = {**no_launches(), "flash_ce_fwd": REC_STEPS,
                 "flash_ce_bwd": REC_STEPS}
     if launches != expected:
         fail(f"[32] the --rec run launched {launches}, expected {expected}")
@@ -5274,7 +5248,7 @@ def phase_mp_arcface(tmp: str) -> dict:
     if not row_gap <= row_tol:
         fail(f"[36] the touched class rows of 2 x 2 ranks part from one "
              f"rank's by {row_gap:.3e} > {row_tol:.3e}")
-    expected = {**NO_LAUNCHES, "flash_ce_fwd": MP_ARC_STEPS,
+    expected = {**no_launches(), "flash_ce_fwd": MP_ARC_STEPS,
                 "flash_ce_bwd": MP_ARC_STEPS}
     shard = MP_ARC_CLASSES // 2
     for r, res in enumerate(ranks):
@@ -5401,7 +5375,7 @@ def phase_mp_rgb(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[37] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
+    per_rank = {**no_launches(), "triplane_sampler": 2, "ray_marcher": 2,
                 **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:
@@ -5508,7 +5482,7 @@ def phase_mp_rays(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[38] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**NO_LAUNCHES, "triplane_sampler": 2, "ray_marcher": 2,
+    per_rank = {**no_launches(), "triplane_sampler": 2, "ray_marcher": 2,
                 **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:

@@ -24,8 +24,8 @@ into the graph's own buffers (laid out as the inputs of its capture) and
 its outputs copied out, so nothing a caller holds aliases a graph's
 memory. A replay runs the kernels `fn` launched at the capture: code
 patched under `fn` after it is not seen (`reset` drops every graph). The
-kernels' launch counters (`core/kernels/{triplane,raymarch,fir}.LAUNCHES`
-and `LAUNCHES_BWD`) advance at each replay by the launches the graph holds.
+kernels' launch counters (`core/kernels/counters.py`) advance at each
+replay by the launches the graph holds.
 
 The graphs share one memory pool; at most `capacity` keys are kept, the
 least recently used dropped first. A replay is issued inside the caller's
@@ -41,12 +41,10 @@ import torch
 from torch import nn
 from torch._C._profiler import _RecordFunctionFast
 
-from .kernels import fir, raymarch, triplane
+from .kernels import counters
 
-# the launch counters a replay advances
-COUNTERS = ((triplane, "LAUNCHES"), (triplane, "LAUNCHES_BWD"),
-            (raymarch, "LAUNCHES"), (raymarch, "LAUNCHES_BWD"),
-            (fir, "LAUNCHES"), (fir, "LAUNCHES_BWD"))
+# the launch counters a replay advances, as (module, attribute)
+COUNTERS = tuple(counters.COUNTERS.values())
 
 CAPACITY = 32
 _FAILED = "failed"          # a key whose capture failed: eager from then on

@@ -145,14 +145,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hfa_flash_ce_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i64, f, i,
                                      p]
     lib.hfa_flash_ce_bwd.restype = ctypes.c_int
-    lib.hfa_flash_ce_bwd_probe.argtypes = [p, p, p, p, p, p, p, p, i, i, i64,
-                                           f, i, p]
-    lib.hfa_flash_ce_bwd_probe.restype = ctypes.c_int
     lib.hfa_triplane_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, p]
     lib.hfa_triplane_probe.restype = ctypes.c_int
-    lib.hfa_triplane_bwd_probe.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i,
-                                           i, i, i, i, p]
-    lib.hfa_triplane_bwd_probe.restype = ctypes.c_int
     lib.hfa_upfirdn2d.argtypes = [p, p, p, *[i] * 6, *[i64] * 4, *[i] * 8, p]
     lib.hfa_upfirdn2d.restype = ctypes.c_int
     return lib

@@ -4,9 +4,8 @@ wrapper, plain versions and launch counts.
 Replaces the TPU kernels of `hfa_gp_tpu/parallel/pallas_ce.py`:
 `_fwd_kernel` (via `_stats_fwd`) by `csrc/flash_ce.cu` and `_bwd_kernel`
 (via `_stats_bwd`) by `csrc/flash_ce_bwd.cu` (the kernel itself is the
-template of `csrc/flash_ce_bwd.cuh`, which `csrc/flash_ce_bwd_probe.cu`
-instantiates with parts removed). With bf16 operands the same entry points
-launch the tensor-core kernels of `csrc/flash_ce_bf16.cu` and
+template of `csrc/flash_ce_bwd.cuh`). With bf16 operands the same entry
+points launch the tensor-core kernels of `csrc/flash_ce_bf16.cu` and
 `csrc/flash_ce_bwd_bf16.cu` (design in `csrc/flash_ce_bf16.cuh`; the
 backward above d 512 keeps the CUDA-core template). Each source's header
 says what bounds it on the H100 and how the design answers that.

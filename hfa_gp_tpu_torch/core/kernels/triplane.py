@@ -8,9 +8,8 @@ right after it; the kernel is `csrc/triplane.cu` (the template of
 instantiates the same template with stages removed). Backward (d planes):
 replaces `_sampler_bwd_kernel_vmem` and `_sampler_bwd_kernel_hbm` (via
 `_sample_blocked_bwd_vmem` / `_sample_blocked_bwd_hbm`), which compute one
-function; the kernel is `csrc/triplane_bwd.cu` (the template of
-`csrc/triplane_bwd.cuh` with every stage on; `csrc/triplane_bwd_probe.cu`
-instantiates it with stages removed). Each source's header says what
+function; the kernel is `csrc/triplane_bwd.cu` (its template and
+launcher are `csrc/triplane_bwd.cuh`). Each source's header says what
 bounds it on the H100 and how the design answers that.
 
 The optional `layout=(h, w, n)` says that each batch element's M points

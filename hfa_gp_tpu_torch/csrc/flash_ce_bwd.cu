@@ -39,8 +39,8 @@
 //    the same bit for bit from run to run. dne sums over all class tiles,
 //    which run in parallel: 16-byte fp32 atomic adds into a zeroed buffer,
 //    so dne's last bits change from run to run with the order of the adds.
-//    flash_ce_bwd_probe.cu measures what the atomics cost: nothing that
-//    shows (the kernel is no faster without them).
+//    What the atomics cost does not show: the kernel compiled without
+//    them was no faster.
 //  * What is left above the bound (23 ms against 11.8) is the FMA loops
 //    themselves: each product runs at 57 to 70 % of the FMA peak, as the
 //    library's fp32 product does, because an 8 x 8 micro-tile keeps the
@@ -70,8 +70,8 @@ extern "C" int hfa_flash_ce_bwd(const void* ne, const void* w,
         (const float*)ct_se, (const float*)ct_tgt, (float*)dw, (float*)dne,
         ne_t, B, d, C, s, (cudaStream_t)stream);
   if (bf16)          // the class tile does not fit: the CUDA-core route
-    return hfa_ce::launch_flash_ce_bwd<true, 0>(
+    return hfa_ce::launch_flash_ce_bwd<true>(
         ne, w, lab, ct_se, ct_tgt, dw, dne, ne_t, B, d, C, s, stream);
-  return hfa_ce::launch_flash_ce_bwd<false, 0>(
+  return hfa_ce::launch_flash_ce_bwd<false>(
       ne, w, lab, ct_se, ct_tgt, dw, dne, ne_t, B, d, C, s, stream);
 }

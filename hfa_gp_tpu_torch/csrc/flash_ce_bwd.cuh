@@ -1,7 +1,6 @@
-// The flash-CE backward kernel as a template: flash_ce_bwd.cu instantiates
-// it whole (fp32 and bf16 operands), flash_ce_bwd_probe.cu with parts
-// removed, to time what each part costs. The header comment of
-// flash_ce_bwd.cu describes the function and the design.
+// The flash-CE backward kernel as a template on the operands' rounding:
+// flash_ce_bwd.cu instantiates it for fp32 and bf16 operands. The header
+// comment of flash_ce_bwd.cu describes the function and the design.
 
 #pragma once
 
@@ -11,16 +10,6 @@
 #include "flash_ce_common.cuh"
 
 namespace hfa_ce {
-
-// Parts an ablation variant may leave out (bits of the ABLATE parameter).
-// A variant's results mean nothing; only its time does.
-constexpr int NO_ATOMICS = 1;    // dne's atomic adds
-constexpr int NO_DW_STORE = 2;   // dW's store
-constexpr int NO_FMA_RAW = 4;    // the FMAs of the recomputed cosines
-constexpr int NO_FMA_DW = 8;     // the FMAs of dW's product
-constexpr int NO_FMA_DNE = 16;   // the FMAs of dne's product
-constexpr int NO_COPIES = 32;    // the operands' copies into the rings
-constexpr int NO_BARRIERS = 64;  // the barrier of each slice
 
 constexpr int LDD = TILE_C + 4;  // pitch of draw[batch row][class], ≡ 4 mod 32
 constexpr int DW_COLS = 256;     // columns of d a dW pass covers
@@ -68,7 +57,7 @@ __device__ __forceinline__ void fma_cols_cols(const float* __restrict__ a,
   }
 }
 
-template <bool BF16, int ABLATE>
+template <bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_ce_bwd_kernel(const float* __restrict__ ne,
                     const float* __restrict__ ne_t,
@@ -102,9 +91,7 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
       ctt_s[r] = in ? ct_tgt[g0 + r] : 0.0f;
     }
     // -- the cosines' raw products; its ring lies over draw_s
-    raw_tile<BF16, !(ABLATE & NO_FMA_RAW), !(ABLATE & NO_COPIES),
-             !(ABLATE & NO_BARRIERS)>(
-        w, ne_t, C, B, d, c0, g0, vec, draw_s, inv_s, acc);
+    raw_tile<BF16>(w, ne_t, C, B, d, c0, g0, vec, draw_s, inv_s, acc);
 
     // -- dl, draw into shared memory, and the class sums of dl * raw
 #pragma unroll
@@ -148,10 +135,9 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
       const int n_pass = (d + DW_COLS - 1) / DW_COLS;
       const float* a_col = draw_s + wy * 32 + ln.ty * 4;
       const int b_col = wx * WARP_COLS + ln.tx * 4;
-      pipeline<NST_DW, !(ABLATE & NO_BARRIERS)>(
+      pipeline<NST_DW>(
           n_pass * n_bs,
           [&](int q) {
-            if (ABLATE & NO_COPIES) return;
             fill_k_cols<DW_COLS>(ring + (q % NST_DW) * DW_STAGE, ne, B, d,
                                  (int64_t)g0 + (q % n_bs) * KD,
                                  (q / n_bs) * DW_COLS, vec);
@@ -159,10 +145,9 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
           [&](int q) {
             const int ks = q % n_bs, n0 = (q / n_bs) * DW_COLS;
             if (ks == 0) zero(acc);
-            if (!(ABLATE & NO_FMA_DW))
-              fma_cols_cols<BF16>(a_col + ks * KD * LDD, LDD,
-                                  ring + (q % NST_DW) * DW_STAGE + b_col,
-                                  DW_COLS + 4, acc);
+            fma_cols_cols<BF16>(a_col + ks * KD * LDD, LDD,
+                                ring + (q % NST_DW) * DW_STAGE + b_col,
+                                DW_COLS + 4, acc);
             if (ks != n_bs - 1) return;
             // the pass's epilogue: the norm's term, and the one store
 #pragma unroll
@@ -191,16 +176,14 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
                     const float4 p = *reinterpret_cast<const float4*>(dw + at);
                     o.x += p.x; o.y += p.y; o.z += p.z; o.w += p.w;
                   }
-                  if (!(ABLATE & NO_DW_STORE) || o.x == 3.0e38f)
-                    *reinterpret_cast<float4*>(dw + at) = o;
+                  *reinterpret_cast<float4*>(dw + at) = o;
                 } else {
 #pragma unroll
                   for (int e = 0; e < 4; ++e) {
                     if (n + e >= d) continue;
                     float o = fmaf(-scale, w[at + e], a[e]);
                     if (g0 != 0) o += dw[at + e];
-                    if (!(ABLATE & NO_DW_STORE) || o == 3.0e38f)
-                      dw[at + e] = o;
+                    dw[at + e] = o;
                   }
                 }
               }
@@ -218,10 +201,9 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
       const int b_col = wx * WARP_COLS + ln.tx * 4;
       // a warp whose 32 batch rows all lie beyond B has nothing to add
       const bool live = g0 + wy * 32 < B;
-      pipeline<NST_DNE, !(ABLATE & NO_BARRIERS)>(
+      pipeline<NST_DNE>(
           n_pass * n_cs,
           [&](int q) {
-            if (ABLATE & NO_COPIES) return;
             fill_k_cols<DNE_COLS>(ring + (q % NST_DNE) * DNE_STAGE, w, C, d,
                                   c0 + (q % n_cs) * KD, (q / n_cs) * DNE_COLS,
                                   vec);
@@ -230,10 +212,9 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
             const int ks = q % n_cs, n0 = (q / n_cs) * DNE_COLS;
             if (!live) return;
             if (ks == 0) zero(acc);
-            if (!(ABLATE & NO_FMA_DNE))
-              fma_rows_cols<BF16, false, LDD>(
-                  a_row + ks * KD, ring + (q % NST_DNE) * DNE_STAGE + b_col,
-                  DNE_COLS + 4, acc);
+            fma_rows_cols<BF16, false, LDD>(
+                a_row + ks * KD, ring + (q % NST_DNE) * DNE_STAGE + b_col,
+                DNE_COLS + 4, acc);
             if (ks != n_cs - 1) return;
 #pragma unroll
             for (int i = 0; i < TM; ++i) {
@@ -244,7 +225,6 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
                 const int n = n0 + b_col + g * 32;
                 float* p = dne + b * (int64_t)d + n;
                 const float* a = &acc[i][g * 4];
-                if ((ABLATE & NO_ATOMICS) && a[0] != 3.0e38f) continue;
                 if (vec) {
                   // one 16-byte atomic for the thread's 4 consecutive columns
                   if (n < d)
@@ -264,7 +244,7 @@ flash_ce_bwd_kernel(const float* __restrict__ ne,
 
 // dne must be zeroed by the caller; dw is written in full; ne_t is scratch
 // of d * padded_batch(B) floats.
-template <bool BF16, int ABLATE>
+template <bool BF16>
 int launch_flash_ce_bwd(const void* ne, const void* w, const void* lab,
                         const void* ct_se, const void* ct_tgt, void* dw,
                         void* dne, void* ne_t, int B, int d, int64_t C,
@@ -276,10 +256,10 @@ int launch_flash_ce_bwd(const void* ne, const void* w, const void* lab,
                                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      flash_ce_bwd_kernel<BF16, ABLATE>,
+      flash_ce_bwd_kernel<BF16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  flash_ce_bwd_kernel<BF16, ABLATE>
+  flash_ce_bwd_kernel<BF16>
       <<<(unsigned)n_ctiles, THREADS, BWD_SMEM_BYTES, (cudaStream_t)stream>>>(
           (const float*)ne, (const float*)ne_t, (const float*)w,
           (const int*)lab, (const float*)ct_se, (const float*)ct_tgt,

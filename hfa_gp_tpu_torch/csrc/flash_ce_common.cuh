@@ -2,10 +2,11 @@
 // (flash_ce_bwd.cuh) kernels on Hopper. Every product is fp32 FMA on the
 // CUDA cores (no tensor cores, no TF32), so the kernels are bound by the
 // card's 67 TFLOP/s of fp32 FMA. What stands between a tiled product and
-// that rate on the H100, as measured with flash_ce_bwd_probe.cu: the wait
-// for operands, shared memory's 128 bytes a clock (an 8 x 8 micro-tile
-// reads 64 bytes for 64 FMAs, which keeps that port as busy as the FMA
-// pipes), the instruction cache, and the barriers. The design:
+// that rate on the H100, as measured by timing the backward compiled with
+// its parts removed one at a time: the wait for operands, shared memory's
+// 128 bytes a clock (an 8 x 8 micro-tile reads 64 bytes for 64 FMAs, which
+// keeps that port as busy as the FMA pipes), the instruction cache, and the
+// barriers. The design:
 //
 //  * A block of 512 threads (16 warps, one block a multiprocessor, 128
 //    registers a thread) owns a tile of 128 classes and works on up to 256
@@ -109,7 +110,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // filled ring slot s % NST, with the fills of the next NST - 1 slices in
 // flight meanwhile. `fill` may use asynchronous copies or plain stores. Ends with every copy landed and the block synchronised, so the
 // ring (and whatever it aliases) may be reused at once.
-template <int NST, bool SYNC = true, class Fill, class Compute>
+template <int NST, class Fill, class Compute>
 __device__ __forceinline__ void pipeline(int n, Fill fill,
                                          Compute compute) {
 #pragma unroll
@@ -119,7 +120,7 @@ __device__ __forceinline__ void pipeline(int n, Fill fill,
   }
   for (int s = 0; s < n; ++s) {
     cp_async_wait<NST - 2>();      // slice s has landed (this thread's part)
-    if (SYNC) __syncthreads();     // ... everyone's; slot (s - 1) is free
+    __syncthreads();               // ... everyone's; slot (s - 1) is free
     if (s + NST - 1 < n) fill(s + NST - 1);
     cp_async_commit();
     compute(s);
@@ -297,9 +298,7 @@ constexpr int RAW_STAGE = TILE_C * PK + KD * (TILE_B + 4);
 // and inv_s[m] = 1 / sqrt(sum of squares of the fp32 row c0 + m of w),
 // correctly rounded rather than the 2-ulp rsqrtf. `ne_t` is the transposed
 // embeddings (d, padded_batch(B)); `ring` holds NST_RAW * RAW_STAGE floats.
-// With FMA, COPY or SYNC false the product's FMAs, the operands' copies or
-// the barrier of each slice are left out (the ablation). Ends with the
-// block synchronised, inv_s visible and the ring free.
+// Ends with the block synchronised, inv_s visible and the ring free.
 __device__ __forceinline__ int raw_class(const Lane& ln, int i) {
   return (ln.warp / WX) * 32 + i * 4 + ln.ty;
 }
@@ -308,7 +307,7 @@ __device__ __forceinline__ int raw_row(const Lane& ln, int j) {
   return (ln.warp % WX) * WARP_COLS + (j >> 2) * 32 + ln.tx * 4 + (j & 3);
 }
 
-template <bool BF16, bool FMA = true, bool COPY = true, bool SYNC = true>
+template <bool BF16>
 __device__ __forceinline__ void raw_tile(
     const float* __restrict__ w, const float* __restrict__ ne_t, int64_t C,
     int B, int d, int64_t c0, int b0, bool vec, float* ring, float* inv_s,
@@ -323,10 +322,9 @@ __device__ __forceinline__ void raw_tile(
   constexpr int SQ = TILE_C * QPR / THREADS;     // pieces of w a thread
   float sumsq[SQ] = {};                          // squares, one row each
   zero(acc);
-  pipeline<NST_RAW, SYNC>(
+  pipeline<NST_RAW>(
       (d + KD - 1) / KD,
       [&](int s) {
-        if (!COPY) return;
         float* st = ring + (s % NST_RAW) * RAW_STAGE;
         fill_rows_k<TILE_C>(st, w, C, d, c0, s * KD, vec);
         fill_k_cols<TILE_B>(st + TILE_C * PK, ne_t, d, padded_batch(B),
@@ -342,7 +340,7 @@ __device__ __forceinline__ void raw_tile(
               st + (h * (THREADS / QPR) + t / QPR) * PK + (t % QPR) * 4);
           sumsq[h] += q.x * q.x + q.y * q.y + q.z * q.z + q.w * q.w;
         }
-        if (FMA && live)
+        if (live)
           fma_rows_cols<BF16, true, PK>(st + a_off, st + b_off, TILE_B + 4,
                                         acc);
       });

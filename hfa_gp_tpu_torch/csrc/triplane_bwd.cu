@@ -26,10 +26,11 @@
 // H100 80GB HBM3 at 700 W, at batch 2: the previous design sent each of
 // them to L2 as 32 scalar atomics (1.05 ms); as 16-byte reductions they
 // take 0.90 ms, and as plain stores of the same bytes still 0.61 ms
-// (tools/probe_sampler.py --backward, device time): the traffic itself
-// costs, so it is summed on chip first. Neighbouring rays
-// and samples share texels: over a screen tile of 8 x 8 rays x 4 samples
-// the 12 rows of every point fall on a few hundred texels a plane. Summing
+// (device time, timed by compiling the kernel with its reductions as
+// stores): the traffic itself costs, so it is summed on chip first.
+// Neighbouring rays and samples share texels: over a screen tile of 8 x 8
+// rays x 4 samples the 12 rows of every point fall on a few hundred texels
+// a plane. Summing
 // them in a shared window with shared-memory float atomics, as the TPU
 // kernel sums into its VMEM accumulator, was slower than no window at all
 // (1.48 against 0.85 ms, a call at a time: the float atomics, and windows
@@ -67,7 +68,7 @@
 namespace {
 
 // the tile with a layout (rays x rays x samples) and the run of points
-// without one; settled on the H100 with tools/probe_sampler.py --backward
+// without one; settled on the H100 by timing the kernel at other tiles
 constexpr int TILE_ROWS = 8, TILE_COLS = 8, TILE_SAMPLES = 4;
 constexpr int RUN_POINTS = 256;
 
@@ -78,7 +79,7 @@ extern "C" int hfa_triplane_mean_bwd(const void* g, const void* coords,
                                      int C, float scale, int lh, int lw,
                                      int ln, void* stream) {
   const bool layout = lh > 1 || lw > 1;
-  return hfa::launch_triplane_bwd<true, hfa::BWD_ALL>(
+  return hfa::launch_triplane_bwd(
       (const float*)g, (const float*)coords, (float*)grad, B, M, H, W, C,
       scale, lh, lw, ln, layout ? TILE_ROWS : 1, layout ? TILE_COLS : 1,
       layout ? TILE_SAMPLES : RUN_POINTS, (cudaStream_t)stream);

@@ -1,9 +1,6 @@
-// The tri-plane sampler's backward kernel as one template with five stage
-// switches: triplane_bwd.cu instantiates it with every stage on, and
-// triplane_bwd_probe.cu with stages removed, so the probe measures the
-// kernel that runs and its whole variant is the kernel by construction.
-// The header comment of triplane_bwd.cu describes the function and the
-// design; triplane_bwd_probe.cu what a removed stage leaves behind.
+// The tri-plane sampler's backward kernel and its launcher, which
+// triplane_bwd.cu instantiates. The header comment of triplane_bwd.cu
+// describes the function and the design.
 
 #pragma once
 
@@ -22,15 +19,6 @@ constexpr int BWD_TILE_POINTS = BWD_THREADS;  // a point a thread in step 1
 constexpr int BWD_MAX_CELLS = 768;   // buckets a plane (at most 4 a thread)
 constexpr int BWD_SORT_MAX_C = 32;   // channels of the sorted path's g tile
 
-// The stages, one bit each. Removing one changes the result; only the time
-// of such a variant means anything.
-constexpr unsigned BWD_COORDS = 1u << 0;      // the coordinate reads
-constexpr unsigned BWD_GREAD = 1u << 1;       // the read of g
-constexpr unsigned BWD_SORT = 1u << 2;        // the sorted path
-constexpr unsigned BWD_FLUSH = 1u << 3;       // the sorted path's texel adds
-constexpr unsigned BWD_GLOBAL_RED = 1u << 4;  // global reductions
-constexpr unsigned BWD_ALL = (1u << 5) - 1;
-
 // How a batch element's M points are cut into the blocks' tiles. The points
 // are lh x lw rays, row-major, of ln samples each (lh * lw * ln == M, point
 // m = (row * lw + col) * ln + sample); a tile is th x tw rays x tn samples,
@@ -42,24 +30,10 @@ struct BwdTiles {
   int nth, ntw, ntn;
 };
 
-template <bool RED>
+// one 16-byte reduction (red.global.add.v4.f32 on sm_90)
 __device__ __forceinline__ void global_add4(float* p, float a, float b,
                                             float c, float d) {
-  if constexpr (RED) {
-    // one 16-byte reduction (red.global.add.v4.f32 on sm_90)
-    atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-  }
-}
-
-template <bool RED>
-__device__ __forceinline__ void global_add1(float* p, float v) {
-  if constexpr (RED) {
-    atomicAdd(p, v);
-  } else {
-    *p = v;
-  }
+  atomicAdd(reinterpret_cast<float4*>(p), make_float4(a, b, c, d));
 }
 
 // A point's two axes on each plane: plane 0 spans (u, v) = (x, y), plane 1
@@ -69,19 +43,11 @@ struct PlaneAxes {
   Axis u[3], v[3];
 };
 
-template <bool COORDS>
 __device__ __forceinline__ PlaneAxes plane_axes(const float* __restrict__ xyz,
                                                 float scale, int H, int W) {
-  float x, y, z;
-  if constexpr (COORDS) {
-    x = scale * __ldg(xyz + 0);
-    y = scale * __ldg(xyz + 1);
-    z = scale * __ldg(xyz + 2);
-  } else {
-    x = scale * 0.0625f;
-    y = scale * -0.125f;
-    z = scale * 0.03125f;
-  }
+  const float x = scale * __ldg(xyz + 0);
+  const float y = scale * __ldg(xyz + 1);
+  const float z = scale * __ldg(xyz + 2);
   PlaneAxes a;
   a.u[0] = axis_footprint(x, W);
   a.u[1] = a.u[0];
@@ -146,21 +112,17 @@ __device__ __forceinline__ void block_exclusive_scan(int* a, int n,
 // (blockIdx.x, blockIdx.y) takes tile blockIdx.x of batch element
 // blockIdx.y. In the direct pass a point is served by 2^lp_shift
 // consecutive lanes, each VW channels wide, striding over C, as in the
-// forward; in the sorted path a bucket row is.
-template <int VW, unsigned S>
+// forward; in the sorted path a bucket row is. SORT: the sorted path, and
+// with it the g tile in shared memory, where a texel row is 16-byte lanes
+// of at most 32 channels (the launcher sends any other C to the direct
+// pass alone).
+template <int VW, bool SORT>
 __global__ void __launch_bounds__(BWD_THREADS, BWD_MIN_BLOCKS)
 triplane_bwd_kernel(const float* __restrict__ g,
                     const float* __restrict__ coords,
                     float* __restrict__ grad, int M, int H, int W, int C,
                     float scale, BwdTiles t, int lp_shift) {
-  constexpr bool COORDS = (S & BWD_COORDS) != 0;
-  constexpr bool GREAD = (S & BWD_GREAD) != 0;
-  // the sorted path, and with it the g tile in shared memory, where a
-  // texel row is 16-byte lanes of at most 32 channels (the launcher sends
-  // any other C to an instantiation without it)
-  constexpr bool SORT = (S & BWD_SORT) != 0 && VW == 4;
-  constexpr bool FLUSH = (S & BWD_FLUSH) != 0;
-  constexpr bool RED = (S & BWD_GLOBAL_RED) != 0;
+  static_assert(!SORT || VW == 4, "the sorted path reads 16-byte lanes");
 
   extern __shared__ float4 g_tile[];          // (points, C / 4), SORT only
   __shared__ int s_m[BWD_TILE_POINTS];
@@ -209,7 +171,7 @@ triplane_bwd_kernel(const float* __restrict__ g,
     const int m = ((r0 + q / nw) * t.lw + c0 + q % nw) * t.ln + k0 + k;
     s_m[p] = m;
     if constexpr (SORT) {
-      const PlaneAxes a = plane_axes<COORDS>(cb + (int64_t)m * 3, scale, H, W);
+      const PlaneAxes a = plane_axes(cb + (int64_t)m * 3, scale, H, W);
 #pragma unroll
       for (int pl = 0; pl < 3; ++pl) {
         const Axis& au = a.u[pl];
@@ -264,15 +226,9 @@ triplane_bwd_kernel(const float* __restrict__ g,
     for (int k = 0; k < BWD_SORT_MAX_C / 4; ++k) {
       const int i = tid + k * BWD_THREADS;
       const int q = i / quads;
-      if (i < P * quads) {
-        if constexpr (GREAD) {
-          x[k] = __ldg(reinterpret_cast<const float4*>(
-              gb + (int64_t)s_m[q] * C + (i - q * quads) * 4));
-        } else {
-          const float v = 0.5f + (float)(q & 7);
-          x[k] = make_float4(v, v, v, v);
-        }
-      }
+      if (i < P * quads)
+        x[k] = __ldg(reinterpret_cast<const float4*>(
+            gb + (int64_t)s_m[q] * C + (i - q * quads) * 4));
     }
 #pragma unroll
     for (int k = 0; k < BWD_SORT_MAX_C / 4; ++k) {
@@ -293,7 +249,7 @@ triplane_bwd_kernel(const float* __restrict__ g,
   if (direct) {
     for (int pp = slot; pp < P; pp += slots) {
       const int m = s_m[pp];
-      const PlaneAxes a = plane_axes<COORDS>(cb + (int64_t)m * 3, scale, H, W);
+      const PlaneAxes a = plane_axes(cb + (int64_t)m * 3, scale, H, W);
       for (int c = sub * VW; c < C; c += VW << lp_shift) {
         float gv[VW];
         if constexpr (SORT) {
@@ -302,20 +258,15 @@ triplane_bwd_kernel(const float* __restrict__ g,
           gv[1 % VW] = x.y;
           gv[2 % VW] = x.z;
           gv[3 % VW] = x.w;
-        } else if constexpr (GREAD) {
-          if constexpr (VW == 4) {
-            const float4 x = __ldg(
-                reinterpret_cast<const float4*>(gb + (int64_t)m * C + c));
-            gv[0] = x.x;
-            gv[1 % VW] = x.y;
-            gv[2 % VW] = x.z;
-            gv[3 % VW] = x.w;
-          } else {
-            gv[0] = __ldg(gb + (int64_t)m * C + c);
-          }
+        } else if constexpr (VW == 4) {
+          const float4 x = __ldg(
+              reinterpret_cast<const float4*>(gb + (int64_t)m * C + c));
+          gv[0] = x.x;
+          gv[1 % VW] = x.y;
+          gv[2 % VW] = x.z;
+          gv[3 % VW] = x.w;
         } else {
-#pragma unroll
-          for (int k = 0; k < VW; ++k) gv[k] = 0.5f + (float)(m & 7);
+          gv[0] = __ldg(gb + (int64_t)m * C + c);
         }
 #pragma unroll
         for (int k = 0; k < VW; ++k) gv[k] = gv[k] / 3.0f;
@@ -338,11 +289,10 @@ triplane_bwd_kernel(const float* __restrict__ g,
             float* r = grad_b
                 + (q + ((int64_t)(corner >> 1) * W + (corner & 1)) * C);
             if constexpr (VW == 4) {
-              global_add4<RED>(r, gv[0] * wt[corner], gv[1 % VW] * wt[corner],
-                               gv[2 % VW] * wt[corner],
-                               gv[3 % VW] * wt[corner]);
+              global_add4(r, gv[0] * wt[corner], gv[1 % VW] * wt[corner],
+                          gv[2 % VW] * wt[corner], gv[3 % VW] * wt[corner]);
             } else {
-              global_add1<RED>(r, gv[0] * wt[corner]);
+              atomicAdd(r, gv[0] * wt[corner]);
             }
           }
         }
@@ -450,16 +400,10 @@ triplane_bwd_kernel(const float* __restrict__ g,
                             sw.z + carry_s.z, sw.w + carry_s.w);
           // a texel outside the plane takes nothing (its corners are out of
           // bounds); one no point reaches holds zeros: no reduction
-          bool add = c < C && r >= 0 && r < H && col >= 0 && col < W
-                     && (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f
-                         || v.w != 0.0f);
-          if constexpr (!FLUSH) {
-            // keep the sums alive under a condition no finite gradient meets
-            add = add && v.x == 3.0e38f;
-          }
-          if (add)
-            global_add4<RED>(plane_grad + ((int64_t)r * W + col) * C + c,
-                             v.x / 3.0f, v.y / 3.0f, v.z / 3.0f, v.w / 3.0f);
+          if (c < C && r >= 0 && r < H && col >= 0 && col < W
+              && (v.x != 0.0f || v.y != 0.0f || v.z != 0.0f || v.w != 0.0f))
+            global_add4(plane_grad + ((int64_t)r * W + col) * C + c,
+                        v.x / 3.0f, v.y / 3.0f, v.z / 3.0f, v.w / 3.0f);
         }
         carry_n = ne;
         carry_s = se;
@@ -468,23 +412,20 @@ triplane_bwd_kernel(const float* __restrict__ g,
   }
 }
 
-// The launch of variant S: tiles from the layout (lh, lw, ln) and the tile
-// (th, tw, tn), clamped to it. The sorted path where C % 4 == 0 and
-// C <= 32, else the direct pass alone, 16-byte lanes where C % 4 == 0, one
-// float a lane otherwise. With ANY_C false only the sorted path's C is
-// compiled and any other C is refused (the probe).
-template <bool ANY_C, unsigned S>
-int launch_triplane_bwd(const float* g, const float* coords, float* grad,
-                        int B, int M, int H, int W, int C, float scale, int lh,
-                        int lw, int ln, int th, int tw, int tn,
-                        cudaStream_t stream) {
+// The launch: tiles from the layout (lh, lw, ln) and the tile (th, tw, tn),
+// clamped to it. The sorted path where C % 4 == 0 and C <= 32, else the
+// direct pass alone, 16-byte lanes where C % 4 == 0, one float a lane
+// otherwise.
+inline int launch_triplane_bwd(const float* g, const float* coords,
+                               float* grad, int B, int M, int H, int W, int C,
+                               float scale, int lh, int lw, int ln, int th,
+                               int tw, int tn, cudaStream_t stream) {
   if (B <= 0 || M <= 0) return (int)cudaGetLastError();
   if (H < 1 || W < 1 || C < 1 || (int64_t)H * W * C > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if (lh < 1 || lw < 1 || ln < 1 || (int64_t)lh * lw * ln != M)
     return (int)cudaErrorInvalidValue;
   const bool sorted = C % 4 == 0 && C <= BWD_SORT_MAX_C;
-  if (!ANY_C && !sorted) return (int)cudaErrorInvalidValue;
   const int vw = C % 4 == 0 ? 4 : 1;
   int lp_shift = 0;                    // lanes a point: the power of two that
   while (lp_shift < 5 && (vw << lp_shift) < C) ++lp_shift;   // covers C
@@ -505,8 +446,7 @@ int launch_triplane_bwd(const float* g, const float* coords, float* grad,
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   // the g tile of the sorted path; the static arrays and it pass 48 KB, so
   // the size is opted in
-  const size_t smem = sorted && (S & BWD_SORT)
-                      ? (size_t)t.th * t.tw * t.tn * C * 4 : 0;
+  const size_t smem = sorted ? (size_t)t.th * t.tw * t.tn * C * 4 : 0;
   const int64_t plane_size = (int64_t)H * W * C;
   for (int b0 = 0; b0 < B; b0 += 65535) {          // gridDim.y's limit
     const int nb = B - b0 < 65535 ? B - b0 : 65535;
@@ -515,20 +455,18 @@ int launch_triplane_bwd(const float* g, const float* coords, float* grad,
     const float* co = coords + (int64_t)b0 * M * 3;
     float* gr = grad + (int64_t)b0 * 3 * plane_size;
     if (sorted) {
-      auto kernel = triplane_bwd_kernel<4, S>;
+      auto kernel = triplane_bwd_kernel<4, true>;
       cudaError_t e = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (e != cudaSuccess) return (int)e;
       kernel<<<grid, BWD_THREADS, smem, stream>>>(gp, co, gr, M, H, W, C,
                                                   scale, t, lp_shift);
-    } else if constexpr (ANY_C) {
-      constexpr unsigned D = S & ~BWD_SORT;     // the direct pass alone
-      if (vw == 4)
-        triplane_bwd_kernel<4, D><<<grid, BWD_THREADS, 0, stream>>>(
-            gp, co, gr, M, H, W, C, scale, t, lp_shift);
-      else
-        triplane_bwd_kernel<1, D><<<grid, BWD_THREADS, 0, stream>>>(
-            gp, co, gr, M, H, W, C, scale, t, lp_shift);
+    } else if (vw == 4) {
+      triplane_bwd_kernel<4, false><<<grid, BWD_THREADS, 0, stream>>>(
+          gp, co, gr, M, H, W, C, scale, t, lp_shift);
+    } else {
+      triplane_bwd_kernel<1, false><<<grid, BWD_THREADS, 0, stream>>>(
+          gp, co, gr, M, H, W, C, scale, t, lp_shift);
     }
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-"""What the card-side tools share: the card's name and power limit, and
-CUDA-event timing."""
+"""The card's name and power limit, and CUDA-event timing, for the
+sampler probe (`probe_sampler`) and the card-side smoke test
+(`chip_smoke.py`)."""
 
 from __future__ import annotations
 
@@ -27,13 +28,6 @@ def events_ms(fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
-
-
-def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Median of `iters` timings of fn(), after warm-up."""
-    for _ in range(warmup):
-        fn()
-    return float(np.median([events_ms(fn) for _ in range(iters)]))
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 3,

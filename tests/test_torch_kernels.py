@@ -557,26 +557,6 @@ def test_sampler_backward_kernel_where_boxes_overflow(cuda, case):
 
 
 @pytest.mark.gpu
-def test_sampler_backward_probe_whole_variant_matches_the_kernel(cuda):
-    """The probe's whole variant is the kernel's template with every stage
-    on, at the kernel's tile: the same gradient up to the atomics' order;
-    every variant launches."""
-    from hfa_gp_tpu_torch.tools import probe_sampler
-    pts = _camera_points(2, 32, 12).to(cuda)
-    shape = (2, 3, 64, 64, 32)
-    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (2, pts.shape[1], 32)).astype(np.float32)).to(cuda)
-    want = triplane.sample_mean_backward(g, shape, pts, 1.0, (32, 32, 12))
-    got = probe_sampler.probe_backward(g, shape, pts, 1.0, (32, 32, 12))
-    _assert_grad_close(got.cpu().numpy(), want.cpu().numpy())
-    n = probe_sampler.LAUNCHES_BWD
-    for v in probe_sampler.BWD_VARIANTS.values():
-        probe_sampler.probe_backward(g, shape, pts, 1.0, (32, 32, 12), v)
-    torch.cuda.synchronize()
-    assert probe_sampler.LAUNCHES_BWD == n + len(probe_sampler.BWD_VARIANTS)
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("c", [3, 32, 35])
 @pytest.mark.parametrize("n", [2, 31, 32, 33, 48, 96, 200])
 def test_marcher_kernel_fast_and_general_paths_match_plain(cuda, n, c):

@@ -321,7 +321,6 @@ def test_port_imports_no_jax():
         "'models.arcface.iresnet', 'models.arcface.registry', "
         "'models.arcface.convert', 'train.arcface', 'cli.train_arcface', "
         "'utils.observability', 'tools.probe_sampler', "
-        "'tools.profile_arcface', 'tools.profile_reenact', "
         "'models.avatar.audio', 'train.t3dmm', 'train.audio', "
         "'cli.train_3dmm', 'cli.train_audio', 'cli.run_recon_video_3dmm', "
         "'cli.run_recon_video_audio', 'preprocess.smoothing', "
