@@ -479,6 +479,96 @@ def sampler_at_batch(dev: torch.device, g, batch: int) -> dict:
             f"bound_ms_batch{batch}": bd["bound_ms"]}
 
 
+def osg_decoder(dev, g, c: int = 32) -> dict:
+    """An OSG decoder as EG3D initialises it (unit normal weights), with
+    non-zero biases so that their gains are checked too."""
+    return {"fc0": {"weight": torch.randn(64, c, generator=g).to(dev),
+                    "bias": (0.3 * torch.randn(64, generator=g)).to(dev)},
+            "fc1": {"weight": torch.randn(33, 64, generator=g).to(dev),
+                    "bias": (0.3 * torch.randn(33, generator=g)).to(dev)}}
+
+
+# the fused kernel against K1 + the decoder's PyTorch ops, whose features
+# are K1's to the bit: only the decoder's sums run in another order
+DECODER_RTOL = 1e-5
+
+
+def phase_kernels_sampler_decoder(dev, g) -> dict:
+    """The sampler with the OSG decoder fused (`triplane.sample_decode`)
+    at the main path's points, batch 8 and 1: against its plain version
+    (`sample_decode_plain`) and the unfused route (K1, then
+    `decode_plain`), its time beside its bound (the larger of the bytes in
+    and out at the HBM rate and the decoder's 8,320 FLOP a point at the
+    fp32 peak), the plain version's and the unfused route's; then C 8 and
+    30, which the kernel refuses and the renderer leaves to K1."""
+    from hfa_gp_tpu_torch.core.kernels import triplane
+    from hfa_gp_tpu_torch.models.eg3d import renderer
+    dec = osg_decoder(dev, g)
+    entry = {}
+    for batch in (8, 1):
+        planes = torch.randn((batch, 3, 256, 256, 32), generator=g).to(dev)
+        pts = main_path_points(dev, batch)
+        with torch.inference_mode():
+            got = triplane.sample_decode(planes, pts, 1.0, dec, 1.0)
+            unfused = triplane.decode_plain(
+                dec, 1.0, triplane.sample_mean(planes, pts, 1.0))
+            plain = triplane.sample_decode_plain(planes, pts, 1.0, dec, 1.0)
+            torch.cuda.synchronize()
+            err = max(rel_err(x, y)[1] for x, y in zip(got, unfused))
+            err_plain = max(rel_err(x, y)[1] for x, y in zip(got, plain))
+            del unfused, plain
+            ms = cuda_time_ms(lambda: triplane.sample_decode(
+                planes, pts, 1.0, dec, 1.0))
+            plain_ms = cuda_time_ms(lambda: triplane.sample_decode_plain(
+                planes, pts, 1.0, dec, 1.0))
+            unfused_ms = cuda_time_ms(lambda: triplane.decode_plain(
+                dec, 1.0, triplane.sample_mean(planes, pts, 1.0)))
+        n_points = pts.shape[0] * pts.shape[1]
+        n_bytes, n_flops = nbytes(planes, pts, *got), n_points * 8320
+        if not (err <= DECODER_RTOL and err_plain <= SAMPLER_ATOL):
+            fail(f"the fused sampler + decoder at batch {batch}: {err} of "
+                 f"the outputs' scale from the unfused route, {err_plain} "
+                 f"from its plain version")
+        if batch == 8:
+            entry = kernel_entry(
+                "triplane_sampler_decoder",
+                "hfa_gp_tpu_torch/csrc/triplane.cu",
+                "none (the JAX renderer's decoder_apply after the sampler, "
+                "hfa_gp_tpu/models/eg3d/renderer.py:287)", err, ms, plain_ms,
+                None, n_bytes, n_flops)
+            entry.update({"max_err_vs_plain": err_plain,
+                          "unfused_ms": unfused_ms})
+        else:
+            bd = bound(n_bytes, n_flops)
+            entry.update({"ms_batch1": ms, "plain_ms_batch1": plain_ms,
+                          "unfused_ms_batch1": unfused_ms,
+                          "bound_ms_batch1": bd["bound_ms"]})
+        print(f"[3] sampler + decoder fused at batch {batch}: kernel "
+              f"{ms:.4f} ms, K1 + decoder ops {unfused_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound "
+              f"{bound(n_bytes, n_flops)['bound_ms']:.4f} ms "
+              f"({n_bytes / 1e9:.3f} GB, {n_flops / 1e9:.2f} GFLOP); "
+              f"{err:.3e} of the outputs' scale from the unfused route, "
+              f"{err_plain:.3e} from the plain version", flush=True)
+        del planes, pts, got
+    cfg = renderer.RenderConfig()
+    for c in (8, 30):
+        planes = torch.randn((1, 3, 32, 32, c), generator=g).to(dev)
+        pts = (torch.rand((1, 4096, 3), generator=g) - 0.5).to(dev)
+        dec_c = osg_decoder(dev, g, c)
+        with torch.inference_mode():
+            if renderer.decoder_fused(cfg, planes, pts, dec_c, False):
+                fail(f"the fused route engages at C {c}")
+            try:
+                triplane.sample_decode(planes, pts, 1.0, dec_c, 1.0)
+            except ValueError:
+                continue
+        fail(f"the fused kernel took C {c}")
+    print("    at C 8 and 30 the fused kernel refuses and the route stays "
+          "on K1", flush=True)
+    return entry
+
+
 def sampler_bwd_cases(dev, g, planes_shape, pts):
     """K2 on the main path's points with their layout, without it, and on
     the same points shuffled (with their cotangents, so the gradient is
@@ -831,6 +921,9 @@ def phase_kernels(dev: torch.device) -> list[dict]:
     # -- sampler backward: g (2, 786432, 32) → d planes
     results.append(phase_sampler_backward(dev, g, planes, pts, off))
     del planes, pts, off, out
+
+    # -- the sampler with the decoder fused, at the cells' batches
+    results.append(phase_kernels_sampler_decoder(dev, g))
 
     # -- marcher: (2, 16384, 96, 32), the unified pass; then (2, 16384, 48,
     # 32), the coarse pass
@@ -1392,8 +1485,12 @@ def write_dataset(root: str, n: int = 4, size: int = 256,
 
 
 # launches of each kernel on a reenactment batch, an RGB training step and
-# an arcface step: what [4], [7] and [10] hold the counts to
-LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
+# an arcface step: what [4], [7] and [10] hold the counts to. A render
+# with no gradient runs the sampler with the decoder fused, which counts
+# as the sampler's launch and as the decoder's
+# (`triplane_sampler_decoder`): `decoder(n)`
+LAUNCHES_PER_UNIT = {"triplane_sampler": (0, 2, 0),
+                     "triplane_sampler_decoder": (2, 0, 0),
                      "triplane_sampler_bwd": (0, 2, 0),
                      "ray_marcher": (2, 2, 0), "ray_marcher_bwd": (0, 1, 0),
                      "flash_ce_fwd": (0, 0, 1), "flash_ce_bwd": (0, 0, 1),
@@ -1405,6 +1502,12 @@ LAUNCHES_PER_UNIT = {"triplane_sampler": (2, 2, 0),
 # (3DMM, audio, the bases' display) 16; a training step adds one backward
 # launch for each, since every FIR's input needs a gradient
 FIR_RGB, FIR_SYNTHESIS = 28, 16
+
+
+def decoder(n: int) -> dict[str, int]:
+    """n renders' passes with the decoder fused: the sampler's forward
+    launches and the fused ones, as `read_launches` keys."""
+    return {"triplane_sampler": n, "triplane_sampler_decoder": n}
 
 
 def fir(fwd: int, bwd: int = 0) -> dict[str, int]:
@@ -1477,7 +1580,7 @@ def phase_main_path(tmp: str) -> dict[str, int]:
         fail("no video written")
     if len(finite) != n_batches or not all(finite):
         fail(f"non-finite frames: {finite}")
-    expected = {**no_launches(), "triplane_sampler": 2 * n_batches,
+    expected = {**no_launches(), **decoder(2 * n_batches),
                 "ray_marcher": 2 * n_batches, **fir(FIR_RGB * n_batches)}
     if launches != expected:
         fail(f"reenactment launched {launches}, expected {expected}")
@@ -1600,9 +1703,11 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     # march forward, and only the unified march runs backward, since the
     # coarse march feeds nothing but the detached fine depths. The display
     # adds forward launches only: 2 + 2 for the test frame, and 2 + 2 for
-    # each batch of 8 basis directions (a synthesis without the encoder).
+    # each batch of 8 basis directions (a synthesis without the encoder),
+    # with the decoder fused, since no gradient is wanted there.
     n_fwd = 2 * steps + 2 + 2 * -(-n_bases // 8)
     expected = {**no_launches(), "triplane_sampler": n_fwd,
+                "triplane_sampler_decoder": n_fwd - 2 * steps,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_RGB * (steps + 1)
@@ -2145,8 +2250,10 @@ def phase_3dmm_path(tmp: str) -> dict[str, int]:
     if ckpts != ["000001", "000003"]:
         fail(f"3DMM checkpoints {ckpts}")
     # per step the RGB step's launches; the display renders one test frame
+    # (the decoder fused)
     n_fwd = 2 * steps + 2
     expected = {**no_launches(), "triplane_sampler": n_fwd,
+                "triplane_sampler_decoder": 2,
                 "ray_marcher": n_fwd, "triplane_sampler_bwd": 2 * steps,
                 "ray_marcher_bwd": steps,
                 **fir(FIR_SYNTHESIS * (steps + 1), FIR_SYNTHESIS * steps)}
@@ -2176,8 +2283,14 @@ def phase_3dmm_path(tmp: str) -> dict[str, int]:
                                   "--model_path",
                                   os.path.join(base, "checkpoint",
                                                "000003")]))
+    reenacted = read_launches()
     check_pngs(f"3DMM reenactment from the checkpoint, --fix_cam, launches "
-               f"{read_launches()}", os.path.join(demo, "fix", "*.png"), 4)
+               f"{reenacted}", os.path.join(demo, "fix", "*.png"), 4)
+    # one batch of 4 frames: both passes with the decoder fused
+    want = {**no_launches(), **decoder(2), "ray_marcher": 2,
+            **fir(FIR_SYNTHESIS)}
+    if reenacted != want:
+        fail(f"3DMM reenactment launched {reenacted}, expected {want}")
     return launches
 
 
@@ -2262,8 +2375,13 @@ def phase_audio_path(tmp: str) -> dict[str, int]:
                                    "--smooth", "--model_path",
                                    os.path.join(base, "checkpoint",
                                                 "000003")]))
+    reenacted = read_launches()
     check_pngs(f"audio reenactment from the checkpoint, --smooth, launches "
-               f"{read_launches()}", os.path.join(demo, "smo", "*.png"), 4)
+               f"{reenacted}", os.path.join(demo, "smo", "*.png"), 4)
+    want = {**no_launches(), **decoder(2), "ray_marcher": 2,
+            **fir(FIR_SYNTHESIS)}
+    if reenacted != want:
+        fail(f"audio reenactment launched {reenacted}, expected {want}")
     return launches
 
 
@@ -3602,7 +3720,7 @@ def phase_remat_ray_chunk(fp32_step: dict) -> dict:
           f"{secs['cpu']:.2f} s", flush=True)
     if not torch.isfinite(frames["cuda"]).all() or not err <= E2E_RTOL * scale:
         fail(f"[29] ray_chunk batch card vs CPU: {err}")
-    chunk_expected = {**no_launches(), "triplane_sampler": 2 * n_chunks,
+    chunk_expected = {**no_launches(), **decoder(2 * n_chunks),
                       "ray_marcher": 2 * n_chunks, **fir(FIR_RGB)}
     if chunk_launches != chunk_expected:
         fail(f"[29] ray_chunk batch launched {chunk_launches}, expected "
@@ -4279,7 +4397,7 @@ def render_from_npz(what: str, cli, argv: list[str], owner, fn: str,
           f"{default:.3e})", flush=True)
     if not max(errs) <= CONVERT_RENDER_RTOL:
         fail(f"[31] {what}: the render from the npz differs by {errs}")
-    expected = {**no_launches(), "triplane_sampler": 2 * len(rec.calls),
+    expected = {**no_launches(), **decoder(2 * len(rec.calls)),
                 "ray_marcher": 2 * len(rec.calls),
                 **fir(fir_unit * len(rec.calls))}
     if launches != expected:
@@ -4863,7 +4981,7 @@ class RecordingRows:
 def recorded_rays():
     """Yields {kernel: [(batch, rays) of each launch]} of the four avatar
     kernels while it is open; the sampler's rays are its points over the
-    render's samples a ray in each pass."""
+    render's samples a ray in each pass, with the decoder fused or not."""
     from hfa_gp_tpu_torch.core.kernels import raymarch, triplane
     from hfa_gp_tpu_torch.models.eg3d.renderer import RenderConfig
     n = RenderConfig().depth_resolution
@@ -4871,6 +4989,7 @@ def recorded_rays():
     seen = {"triplane_sampler": [], "triplane_sampler_bwd": [],
             "ray_marcher": [], "ray_marcher_bwd": []}
     real = {"triplane_sampler": (triplane, "_launch_forward"),
+            "triplane_sampler_decoder": (triplane, "sample_decode"),
             "triplane_sampler_bwd": (triplane, "sample_mean_backward"),
             "ray_marcher": (raymarch, "_launch_forward"),
             "ray_marcher_bwd": (raymarch, "ray_march_backward")}
@@ -4880,7 +4999,8 @@ def recorded_rays():
         def fn(*a, **kw):
             if name.startswith("triplane"):
                 pts = a[2] if name.endswith("bwd") else a[1]
-                seen[name].append((pts.shape[0], pts.shape[1] // n))
+                seen[name.removesuffix("_decoder")].append(
+                    (pts.shape[0], pts.shape[1] // n))
             else:
                 seen[name].append(tuple(a[0].shape[:2]))
             return fns[name](*a, **kw)
@@ -5375,7 +5495,7 @@ def phase_mp_rgb(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[37] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**no_launches(), "triplane_sampler": 2, "ray_marcher": 2,
+    per_rank = {**no_launches(), **decoder(2), "ray_marcher": 2,
                 **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:
@@ -5482,7 +5602,7 @@ def phase_mp_rays(tmp: str) -> dict:
             or max(diffs) > 1:
         fail(f"[38] frames {len(got)} of {len(want)}, level differences "
              f"{diffs}")
-    per_rank = {**no_launches(), "triplane_sampler": 2, "ray_marcher": 2,
+    per_rank = {**no_launches(), **decoder(2), "ray_marcher": 2,
                 **fir(FIR_RGB)}
     for r, res in enumerate(rranks):
         if res["launches"] != per_rank:

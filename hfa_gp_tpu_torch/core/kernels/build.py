@@ -132,6 +132,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     i64 = ctypes.c_int64
     lib.hfa_triplane_mean.argtypes = [p, p, p, i, i, i, i, i, f, p]
     lib.hfa_triplane_mean.restype = ctypes.c_int
+    lib.hfa_triplane_mean_decode.argtypes = [*[p] * 8, *[i] * 5, *[f] * 4, p]
+    lib.hfa_triplane_mean_decode.restype = ctypes.c_int
     lib.hfa_ray_march.argtypes = [p, p, p, p, p, p, i, i, i, p]
     lib.hfa_ray_march.restype = ctypes.c_int
     lib.hfa_triplane_mean_bwd.argtypes = [p, p, p, i, i, i, i, i, f, i, i, i,

@@ -1,10 +1,11 @@
 """The launch counters of the hand-written kernels, in one table.
 
 Each kernel's wrapper module counts its launches in this process in
-`LAUNCHES` (forward) and `LAUNCHES_BWD` (backward). `COUNTERS` names
-them all; the graph helper (`core/graphs.py`) advances them at a replay
-and the card-side smoke test reads them. A new kernel's module adds its
-rows here.
+`LAUNCHES` (forward) and `LAUNCHES_BWD` (backward); the sampler also
+counts, in `LAUNCHES_DECODE`, those of its forward launches that ran the
+decoder fused. `COUNTERS` names them all; the graph helper
+(`core/graphs.py`) advances them at a replay and the card-side smoke test
+reads them. A new kernel's module adds its rows here.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ COUNTERS = {
     "flash_ce_bwd": (flash_ce, "LAUNCHES_BWD"),
     "upfirdn2d": (fir, "LAUNCHES"),
     "upfirdn2d_bwd": (fir, "LAUNCHES_BWD"),
+    "triplane_sampler_decoder": (triplane, "LAUNCHES_DECODE"),
 }
 
 

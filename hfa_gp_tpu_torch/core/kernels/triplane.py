@@ -25,9 +25,18 @@ the renderer's depths are constants or detached importance samples.
 The JAX chip path reads bf16 slabs and matches the exact lookup only to
 about 4e-2; this port is held to the exact fp32 lookup
 (`renderer.sample_from_planes`).
+
+`sample_decode` is the lookup with the renderer's OSG decoder fused, for
+inference: the kernel's decoder overload (`csrc/triplane_sampler.cuh`)
+keeps the features and the hidden layer in registers and writes only rgb
+and sigma. It gives no gradient. Its plain version is `sample_mean_plain`
+followed by `decode_plain`, the decoder's arithmetic, which the renderer's
+`decoder_apply` runs too.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -36,10 +45,17 @@ import torch.nn.functional as F
 from .. import ops
 from . import build
 
-# Launches of the CUDA kernels in this process: forward (`sample_mean`) and
-# backward (d planes, from autograd or `sample_mean_backward`).
+# Launches of the CUDA kernels in this process: forward (`sample_mean` and
+# `sample_decode`), backward (d planes, from autograd or
+# `sample_mean_backward`), and of the forward those with the decoder fused
+# (`sample_decode`).
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_DECODE = 0
+
+# The widths the fused decoder is built for: features, hidden units and
+# outputs (sigma and 32 colours), as the renderer's defaults.
+DECODER_WIDTHS = (32, 64, 33)
 
 # rows: world axes spanning each plane (the corrected EG3D convention)
 PLANE_AXES = np.array([
@@ -224,3 +240,105 @@ def sample_mean(planes: torch.Tensor, coordinates: torch.Tensor,
         raise ValueError("sample_mean: the CUDA kernels give no gradient to "
                          "coordinates; detach them")
     return _SampleMean.apply(planes, coordinates, box_warp, layout)
+
+
+# -- the decoder fused ------------------------------------------------------
+
+
+def decode_plain(decoder, lr_multiplier: float, x: torch.Tensor,
+                 out_dtype: torch.dtype | None = None):
+    """The OSG decoder on features x (..., C) in x's dtype: fc0, softplus,
+    fc1, cast to `out_dtype` (default x's), then (rgb (..., 32) =
+    sigmoid(out[1:]) · 1.002 − 0.001, sigma (..., 1) = out[0]). `decoder`
+    is {"fc0": {"weight", "bias"}, "fc1": {...}}, weights (out, in)."""
+    x = ops.fully_connected(x, decoder["fc0"]["weight"],
+                            decoder["fc0"]["bias"],
+                            lr_multiplier=lr_multiplier)
+    x = F.softplus(x)
+    x = ops.fully_connected(x, decoder["fc1"]["weight"],
+                            decoder["fc1"]["bias"],
+                            lr_multiplier=lr_multiplier)
+    if out_dtype is not None:
+        x = x.to(out_dtype)
+    sigma = x[..., 0:1]
+    rgb = torch.sigmoid(x[..., 1:]) * (1 + 2 * 0.001) - 0.001
+    return rgb, sigma
+
+
+def sample_decode_plain(planes: torch.Tensor, coordinates: torch.Tensor,
+                        box_warp: float, decoder, lr_multiplier: float):
+    """The plain PyTorch version of `sample_decode`: `sample_mean_plain`,
+    then `decode_plain`."""
+    return decode_plain(decoder, lr_multiplier,
+                        sample_mean_plain(planes, coordinates, box_warp))
+
+
+def decoder_leaves(decoder) -> list[torch.Tensor]:
+    """fc0's weight and bias, then fc1's."""
+    return [decoder[k][n] for k in ("fc0", "fc1") for n in ("weight", "bias")]
+
+
+def decodes(planes: torch.Tensor, decoder) -> bool:
+    """Whether the fused kernel is built for these widths: planes of
+    DECODER_WIDTHS[0] channels and a decoder of DECODER_WIDTHS."""
+    c, hidden, out = DECODER_WIDTHS
+    w0, b0, w1, b1 = decoder_leaves(decoder)
+    return (planes.shape[-1] == c and tuple(w0.shape) == (hidden, c)
+            and tuple(b0.shape) == (hidden,)
+            and tuple(w1.shape) == (out, hidden)
+            and tuple(b1.shape) == (out,))
+
+
+def sample_decode(planes: torch.Tensor, coordinates: torch.Tensor,
+                  box_warp: float, decoder, lr_multiplier: float,
+                  layout=None):
+    """The plane-averaged features of `sample_mean` through the OSG
+    decoder of `decode_plain`: (rgb (B, M, 32), sigma (B, M, 1)), with no
+    gradient. `layout` is checked as `sample_mean` checks it.
+
+    A CPU tensor goes to `sample_decode_plain`; a CUDA tensor launches the
+    fused kernel (fp32, contiguous, the widths of `decodes`) or raises,
+    also where autograd would want a gradient of an input."""
+    check_layout("sample_decode", layout, coordinates.shape[1])
+    if planes.device.type == "cpu":
+        return sample_decode_plain(planes, coordinates, box_warp, decoder,
+                                   lr_multiplier)
+    if planes.device.type != "cuda":
+        raise ValueError(f"sample_decode: unsupported device {planes.device}")
+    leaves = decoder_leaves(decoder)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (planes, coordinates, *leaves)):
+        raise ValueError("sample_decode: the fused kernel gives no gradient; "
+                         "call it with autograd off or on inputs that need "
+                         "none")
+    if not decodes(planes, decoder):
+        raise ValueError(f"sample_decode: the fused kernel takes planes of "
+                         f"{DECODER_WIDTHS[0]} channels and a decoder "
+                         f"{DECODER_WIDTHS}, got planes "
+                         f"{tuple(planes.shape)}, fc0 "
+                         f"{tuple(leaves[0].shape)}, fc1 "
+                         f"{tuple(leaves[2].shape)}")
+    b, _, h, w, c = planes.shape
+    w0, b0, w1, b1 = leaves
+    _check_cuda_inputs("sample_decode", planes.shape, planes.device,
+                       {"coordinates": coordinates, "planes": planes,
+                        "fc0.weight": w0, "fc0.bias": b0, "fc1.weight": w1,
+                        "fc1.bias": b1})
+    m = coordinates.shape[1]
+    rgb = torch.empty((b, m, DECODER_WIDTHS[2] - 1), dtype=torch.float32,
+                      device=planes.device)
+    sigma = torch.empty((b, m, 1), dtype=torch.float32, device=planes.device)
+    lib = build.library()
+    global LAUNCHES, LAUNCHES_DECODE
+    with torch.cuda.device(planes.device):
+        err = lib.hfa_triplane_mean_decode(
+            planes.data_ptr(), coordinates.data_ptr(), w0.data_ptr(),
+            b0.data_ptr(), w1.data_ptr(), b1.data_ptr(), rgb.data_ptr(),
+            sigma.data_ptr(), b, m, h, w, c, 2.0 / box_warp,
+            lr_multiplier / math.sqrt(w0.shape[1]),
+            lr_multiplier / math.sqrt(w1.shape[1]), lr_multiplier,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "hfa_triplane_mean_decode")
+    LAUNCHES += 1
+    LAUNCHES_DECODE += 1
+    return rgb, sigma

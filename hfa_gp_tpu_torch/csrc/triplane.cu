@@ -43,6 +43,14 @@
 //
 // The coordinate arithmetic (texels, weights, zeros padding) lives in
 // triplane_common.cuh, shared with the backward kernel.
+//
+// hfa_triplane_mean_decode: the same lookup with the renderer's OSG decoder
+// fused (the kernel's decoder overload, triplane_sampler.cuh): at C = 32,
+// planes and points in, rgb (B, M, 32) and sigma (B, M, 1) out. It replaces
+// no TPU kernel (the JAX package leaves the decoder to XLA after the
+// sampler); it exists because on the card the decoder's GEMMs and
+// elementwise passes moved ~18 GB a pass at batch 8 through device memory
+// for ~1.1 GB of inputs and outputs.
 
 #include "triplane_sampler.cuh"
 
@@ -52,4 +60,21 @@ extern "C" int hfa_triplane_mean(const void* planes, const void* coords,
   return hfa::launch_triplane_sampler<true, true, true, true, true, true>(
       (const float*)planes, (const float*)coords, (float*)out, B, M, H, W, C,
       scale, (cudaStream_t)stream);
+}
+
+extern "C" int hfa_triplane_mean_decode(const void* planes, const void* coords,
+                                        const void* w0, const void* b0,
+                                        const void* w1, const void* b1,
+                                        void* rgb, void* sigma, int B, int M,
+                                        int H, int W, int C, float scale,
+                                        float w0_gain, float w1_gain,
+                                        float b_gain, void* stream) {
+  const hfa::OsgDecoder dec{(const float*)w0, (const float*)b0,
+                            (const float*)w1, (const float*)b1,
+                            w0_gain,          w1_gain,
+                            b_gain,           (float*)rgb,
+                            (float*)sigma};
+  return hfa::launch_triplane_sampler_decoder(
+      (const float*)planes, (const float*)coords, dec, B, M, H, W, C, scale,
+      (cudaStream_t)stream);
 }

@@ -3,7 +3,10 @@ hfa_gp_tpu/models/eg3d/renderer.py), in the direct form.
 
 Coarse pass: stratified depths → tri-plane sampler kernel → OSG decoder →
 ray-march kernel. Fine pass: importance depths from the coarse weights →
-the same two kernels on the depth-sorted union of both sample sets.
+the same two kernels on the depth-sorted union of both sample sets. Where
+no gradient is wanted (`decoder_fused`), the sampler kernel runs the
+decoder itself (`triplane.sample_decode`), and only colours and densities
+reach device memory.
 
 The JAX package's TPU workarounds are not ported: packed planes, slabs and
 block plans, the masked-reduction searchsorted, the one-hot rank merge and
@@ -41,7 +44,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ...core import ops
 from ...core.kernels import raymarch, triplane
 from ...parallel import mesh as mesh_mod
 
@@ -102,16 +104,31 @@ def decoder_apply(params, cfg: RenderConfig, features: torch.Tensor
     averages them first; here the sampler kernel has averaged already."""
     x = features if cfg.decoder_dtype is None \
         else features.to(cfg.decoder_dtype)
-    x = ops.fully_connected(x, params["fc0"]["weight"],
-                            params["fc0"]["bias"],
-                            lr_multiplier=cfg.decoder_lr_mul)
-    x = F.softplus(x)
-    x = ops.fully_connected(x, params["fc1"]["weight"], params["fc1"]["bias"],
-                            lr_multiplier=cfg.decoder_lr_mul) \
-        .to(features.dtype)
-    sigma = x[..., 0:1]
-    rgb = torch.sigmoid(x[..., 1:]) * (1 + 2 * 0.001) - 0.001
-    return rgb, sigma
+    return triplane.decode_plain(params, cfg.decoder_lr_mul, x,
+                                 out_dtype=features.dtype)
+
+
+# the devices on which `eval_points` may take the fused sampler + decoder
+_FUSED_DEVICES = ("cuda",)
+
+
+def decoder_fused(cfg: RenderConfig, planes: torch.Tensor,
+                  points: torch.Tensor, decoder_params,
+                  remat_points: bool) -> bool:
+    """Whether a pass's point evaluation takes `triplane.sample_decode`
+    (the sampler with the decoder fused) instead of `sample_mean` →
+    `decoder_apply`: fp32 planes on the card, the decoder in the
+    features' dtype, no gradient wanted of the planes, the points or a
+    decoder leaf, no recomputation in the backward, and the widths the
+    kernel is built for. Training keeps the two steps, whose backward needs
+    the hidden layer."""
+    leaves = triplane.decoder_leaves(decoder_params)
+    return (planes.device.type in _FUSED_DEVICES
+            and planes.dtype == torch.float32
+            and cfg.decoder_dtype is None and not remat_points
+            and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (planes, points, *leaves)))
+            and triplane.decodes(planes, decoder_params))
 
 
 # -- depth sampling ------------------------------------------------------------
@@ -320,10 +337,16 @@ def _render_core(decoder_params, cfg: RenderConfig, planes: torch.Tensor,
     def eval_points(depths):
         n = depths.shape[2]
         pts = ray_origins[:, :, None, :] + depths * ray_directions[:, :, None]
-        feats = triplane.sample_mean(
-            planes, pts.reshape(b, -1, 3), cfg.box_warp,
-            layout=None if ray_grid is None else (*ray_grid, n))
-        rgb, sigma = decoder_apply(decoder_params, cfg, feats)
+        pts = pts.reshape(b, -1, 3)
+        layout = None if ray_grid is None else (*ray_grid, n)
+        if decoder_fused(cfg, planes, pts, decoder_params, remat_points):
+            rgb, sigma = triplane.sample_decode(
+                planes, pts, cfg.box_warp, decoder_params,
+                cfg.decoder_lr_mul, layout=layout)
+        else:
+            feats = triplane.sample_mean(planes, pts, cfg.box_warp,
+                                         layout=layout)
+            rgb, sigma = decoder_apply(decoder_params, cfg, feats)
         return rgb.reshape(b, r, n, -1), sigma.reshape(b, r, n, 1)
 
     if remat_points:
