@@ -1517,9 +1517,11 @@ def fir(fwd: int, bwd: int = 0) -> dict[str, int]:
 
 def reset_launches() -> None:
     from hfa_gp_tpu_torch.core.kernels import counters
+    from hfa_gp_tpu_torch.models.arcface import vit
     from hfa_gp_tpu_torch.tools import probe_sampler
     counters.reset_launches()
     probe_sampler.LAUNCHES = 0
+    vit.TOKENS = 0
 
 
 def read_launches() -> dict[str, int]:

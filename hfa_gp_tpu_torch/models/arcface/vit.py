@@ -21,6 +21,14 @@ In training the randomness comes from a `torch.Generator` on the input's
 device (JAX takes a key), drawn in a fixed order: the masking noise, then
 for each block with a drop-path rate above 0 the attention branch's and
 the MLP branch's per-sample keep masks.
+
+Profiler ranges (`utils.observability.annotate`), inside the trainer's
+"embed": "attention" (each block's ln1 → qkv → softmax(q·kᵀ) → ·v →
+proj → drop path → residual), "mlp" (ln2 → fc1 → ReLU6 → fc2 → drop
+path → residual) and "vit_head" (the final norm, the mask tokens'
+restore, the two Linear/BN1d pairs): 2 × depth + 1 a call. `TOKENS`
+counts the token-block passes: batch × the tokens that enter the blocks
+× depth, every call.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.convert import ParamTree
+from ...utils.observability import annotate
 from .norm import batch_norm
 
 VIT_CONFIGS = {
@@ -50,6 +59,9 @@ VIT_CONFIGS = {
 INPUT_SIZE = 108          # 12 × 12 patches of 9: the reference conv's reach
 _BN_EPS = 2e-5            # the head's BN1d
 _LN_EPS = 1e-6
+
+# token-block passes in this process: batch × tokens kept × depth a call
+TOKENS = 0
 
 
 def _trunc_normal(g: torch.Generator, shape, std: float = 0.02):
@@ -163,6 +175,7 @@ def vit_apply(params, x: torch.Tensor, name: str = "vit_s",
     """x (B, H, W, 3) → (B, embedding_dim) fp32 [, new_batch_stats when
     train]. H and W are cropped top-left to 108. `train` turns drop path
     and masking on, with randomness from `generator` (needed then)."""
+    global TOKENS
     patch, dim, depth, heads, _, drop_path_rate, mask_ratio = \
         VIT_CONFIGS[name]
     b, h, _, _ = x.shape
@@ -179,40 +192,44 @@ def vit_apply(params, x: torch.Tensor, name: str = "vit_s",
         len_keep = int(n_tokens * (1 - mask_ratio))
         tok, ids_restore = random_masking(tok, len_keep, generator)
 
+    TOKENS += b * tok.shape[1] * depth
     dpr = [drop_path_rate * i / max(depth - 1, 1) for i in range(depth)]
     hd = dim // heads
     scale = 1.0 / math.sqrt(hd)
     for i in range(depth):
         blk = params[f"blk{i}"]
-        y = _ln(blk["ln1"], tok)
-        qkv = _linear(blk["qkv"], y).reshape(b, -1, 3, heads, hd).float()
-        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-        att = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
-        y = (att @ v).transpose(1, 2).reshape(b, -1, dim)
-        y = _linear(blk["proj"], y.to(dtype))
-        if train and dpr[i] > 0:
-            y = drop_path(y, dpr[i], generator)
-        tok = tok + y
-        y = _ln(blk["ln2"], tok)
-        y = _linear(blk["fc2"], torch.clamp(_linear(blk["fc1"], y), 0.0,
-                                            6.0))
-        if train and dpr[i] > 0:
-            y = drop_path(y, dpr[i], generator)
-        tok = tok + y
+        with annotate("attention"):
+            y = _ln(blk["ln1"], tok)
+            qkv = _linear(blk["qkv"], y).reshape(b, -1, 3, heads, hd).float()
+            q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+            att = torch.softmax((q @ k.transpose(-1, -2)) * scale, dim=-1)
+            y = (att @ v).transpose(1, 2).reshape(b, -1, dim)
+            y = _linear(blk["proj"], y.to(dtype))
+            if train and dpr[i] > 0:
+                y = drop_path(y, dpr[i], generator)
+            tok = tok + y
+        with annotate("mlp"):
+            y = _ln(blk["ln2"], tok)
+            y = _linear(blk["fc2"], torch.clamp(_linear(blk["fc1"], y), 0.0,
+                                                6.0))
+            if train and dpr[i] > 0:
+                y = drop_path(y, dpr[i], generator)
+            tok = tok + y
 
-    tok = _ln(params["norm"], tok.float())
-    if masking:
-        tok = restore_masked(tok, params["mask_token"], ids_restore)
+    with annotate("vit_head"):
+        tok = _ln(params["norm"], tok.float())
+        if masking:
+            tok = restore_masked(tok, params["mask_token"], ids_restore)
 
-    flat = tok.reshape(b, n_tokens * dim)
-    st = batch_stats
-    new: dict[str, Any] = {}
-    emb = _linear(params["head0"], flat)
-    emb, new["head0_bn"] = batch_norm(params["head0_bn"], st["head0_bn"],
-                                      emb, train, _BN_EPS)
-    emb = _linear(params["head1"], emb)
-    emb, new["head1_bn"] = batch_norm(params["head1_bn"], st["head1_bn"],
-                                      emb, train, _BN_EPS)
+        flat = tok.reshape(b, n_tokens * dim)
+        st = batch_stats
+        new: dict[str, Any] = {}
+        emb = _linear(params["head0"], flat)
+        emb, new["head0_bn"] = batch_norm(params["head0_bn"], st["head0_bn"],
+                                          emb, train, _BN_EPS)
+        emb = _linear(params["head1"], emb)
+        emb, new["head1_bn"] = batch_norm(params["head1_bn"], st["head1_bn"],
+                                          emb, train, _BN_EPS)
     if train:
         return emb, new
     return emb
