@@ -1676,12 +1676,15 @@ def phase_train_path(tmp: str) -> dict[str, int]:
             *extra])
 
     reset_launches()
+    graphs_before = graph_counts("rgb_loss")
     t0 = time.perf_counter()
     train_rgb.main(train_args("--iter", str(steps), "--display_freq",
                               str(steps), "--save_freq", "2"))
     launches = read_launches()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    replayed = {k: v - graphs_before[k]
+                for k, v in graph_counts("rgb_loss").items()}
 
     with open(os.path.join(base, "log", "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -1693,7 +1696,13 @@ def phase_train_path(tmp: str) -> dict[str, int]:
     print(f"[7] training path: {len(recs)} steps at batch {batch} in "
           f"{seconds:.2f} s (init, display and checkpoints included), "
           f"(l2, lpips) per step {shown}, display {display}, {len(bases)} "
-          f"bases PNGs, checkpoints {ckpts}, launches {launches}", flush=True)
+          f"bases PNGs, checkpoints {ckpts}, launches {launches}, the "
+          f"loss's graphs {replayed}", flush=True)
+    # the first step eager, the second captured, the rest replayed: the
+    # launch counts below hold the replayed steps to an eager step's
+    if replayed != {"eager": 1, "captures": 1, "replays": steps - 2,
+                    "failed": 0}:
+        fail(f"[7] the training steps' graphs: {replayed}")
     if len(recs) != steps or not np.isfinite(np.array(losses)).all():
         fail(f"expected {steps} finite loss records, got {losses}")
     if display != [f"{steps - 1}recon.png", f"{steps - 1}source.png"] \
@@ -1823,28 +1832,62 @@ def phase_step_card_vs_cpu() -> None:
              f"{rels[worst[0]]} of its scale")
 
 
+def graph_counts(kind: str) -> dict[str, int]:
+    """`core.graphs.stats()`'s counts of `kind`, zeros where none ran."""
+    from hfa_gp_tpu_torch.core import graphs
+    st = graphs.stats().get(kind, {})
+    return {k: st.get(k, 0) for k in ("eager", "captures", "replays",
+                                      "failed")}
+
+
 def phase_train_throughput(cfg=None, tag: str = "[9]") -> dict:
     """[9] steady-state training steps/s at batch 2 (host clock around
-    synchronised steps) and peak device memory, for `cfg` (default: the
-    full-width fp32 config); → {"steps_per_s", "gib"}."""
+    synchronised steps) and peak device memory over every step, the
+    warm-up's too, for `cfg` (default: the full-width fp32 config); →
+    {"steps_per_s", "gib"}. The warm-up runs the loss eagerly and
+    captures its graphs, the timed steps replay them: each step launches
+    what an eager step launches (for the fp32 config, `LAUNCHES_PER_UNIT`'s
+    step and `FIR_RGB`). The graphs are dropped at the end."""
+    from hfa_gp_tpu_torch.core import graphs
     from hfa_gp_tpu_torch.train import rgb
     batch, iters, warmup = 2, 5, 2
     cfg, state, lp, image, label = train_setup("cuda", batch, cfg)
-    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches, routes = [], [], []
     for i in range(warmup + iters):
-        if i == warmup:
-            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        before = graph_counts("rgb_loss")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rgb.train_step(state, lp, cfg, image, label, 0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        launches.append(read_launches())
+        routes.append([k for k, v in graph_counts("rgb_loss").items()
+                       if v != before[k]])
     ms = float(np.median(times[warmup:])) * 1e3
     peak = torch.cuda.max_memory_allocated()
     print(f"{tag} training, batch {batch}, {dtype_name(cfg)}, "
           f"generator unfrozen: {ms:.2f} ms per step (median of {iters}), "
           f"{1e3 / ms:.3f} steps/s, {batch * 1e3 / ms:.3f} frames/s, peak "
-          f"device memory {peak / 2**30:.3f} GiB", flush=True)
+          f"device memory {peak / 2**30:.3f} GiB (reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f}); the loss's route "
+          f"a step {routes}, a replayed step's launches {launches[-1]}",
+          flush=True)
+    if routes[warmup:] != [["replays"]] * iters:
+        fail(f"{tag} the timed steps are not all replayed: {routes}")
+    if tag == "[9]":
+        eager_step = {**no_launches(), "triplane_sampler": 2,
+                      "triplane_sampler_bwd": 2, "ray_marcher": 2,
+                      "ray_marcher_bwd": 1, **fir(FIR_RGB, FIR_RGB)}
+        if launches != [eager_step] * (warmup + iters):
+            fail(f"[9] steps launched {launches}, each expected "
+                 f"{eager_step}")
+    elif any(n != launches[0] for n in launches):
+        fail(f"{tag} a replayed step's launches differ from the eager "
+             f"step's: {launches}")
+    graphs.release_training()           # the pool of the step's activations
     return {"steps_per_s": 1e3 / ms, "gib": peak / 2**30}
 
 

@@ -9,7 +9,8 @@ Fits the encoder and the W+ subspace (and, from `--tune_iter` on, the EG3D
 generator) to a subject's training frames with L2 + LPIPS. Writes under
 `{exp_path}/{exp_name}/`: `log/metrics.jsonl` and `log/args.json`,
 `display/{i}source.png` and `{i}recon.png`, `bases/{b}person_1.png`, and
-`checkpoint/{i:06d}`. `--resume_ckpt` takes
+`checkpoint/{i:06d}`. On return the training graphs are dropped with the
+memory they hold (`core.graphs.release_training`). `--resume_ckpt` takes
 one of those checkpoint files and continues from its step. `--person_2`
 adds a second person's subspace (from PTI pivots with `--init --run_id_2`),
 which the RGB loss does not reach, so it is saved as it was initialised,
@@ -28,6 +29,7 @@ import argparse
 
 import torch
 
+from ..core import graphs
 from ..data.dataset import (BatchIterator, HeadData, infinite_batches,
                             process_sharded)
 from ..models.avatar import heads
@@ -113,6 +115,7 @@ def main(args) -> None:
                 ckpt.save(state, dirs["checkpoint"], step=i)
     finally:
         writer.close()
+        graphs.release_training()
 
 
 if __name__ == "__main__":

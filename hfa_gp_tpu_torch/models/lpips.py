@@ -14,8 +14,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..core import ops
 
 # torchvision AlexNet.features: (out_ch, kernel, stride, pad)
 ALEX_CONVS = ((64, 11, 4, 2), (192, 5, 1, 2), (384, 3, 1, 1),
@@ -25,6 +28,9 @@ POOL_AFTER = (0, 1)
 
 SHIFT = (-0.030, -0.088, -0.188)
 SCALE = (0.458, 0.448, 0.450)
+# kept on the device once (`ops.device_constant`): a copy from the host at
+# every call would stop a CUDA graph's capture
+_SHIFT, _SCALE = np.asarray(SHIFT), np.asarray(SCALE)
 
 
 def init_lpips(g: torch.Generator) -> dict:
@@ -65,8 +71,8 @@ def _unit_normalize(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 def lpips_distance(params, img0: torch.Tensor,
                    img1: torch.Tensor) -> torch.Tensor:
     """img0, img1 (B, H, W, 3) in [-1, 1] → (B,) perceptual distance."""
-    shift = torch.tensor(SHIFT, dtype=img0.dtype, device=img0.device)
-    scale = torch.tensor(SCALE, dtype=img0.dtype, device=img0.device)
+    shift = ops.device_constant(_SHIFT, img0.dtype, img0.device)
+    scale = ops.device_constant(_SCALE, img0.dtype, img0.device)
     f0 = alex_features(params, ((img0 - shift) / scale).permute(0, 3, 1, 2))
     f1 = alex_features(params, ((img1 - shift) / scale).permute(0, 3, 1, 2))
     total = 0.0

@@ -1,8 +1,10 @@
 """RGB-driven training (port of hfa_gp_tpu/train/rgb.py).
 
-Loss = L2 + LPIPS on the 512 → size average-pooled render. Eager
-PyTorch, gradients by autograd through the sampler's and
-the marcher's CUDA kernels.
+Loss = L2 + LPIPS on the 512 → size average-pooled render, gradients
+by autograd through the sampler's and the marcher's CUDA kernels. On the
+card, on one rank, `train_step`'s loss and its backward replay as two
+CUDA graphs (`core.graphs.loss`) from a key's second step on; Adam and
+the freeze gate run eagerly.
 With a mesh, `train_step` averages the gradients and loss terms over
 its data axis (`mesh.data_parallel_step`); with a model axis on it the
 model group's ranks split the render's rays, each holding the whole loss.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..core import camera as cam
-from ..core import ops
+from ..core import graphs, ops
 from ..models import lpips as lpips_mod
 from ..models.avatar import heads
 from ..parallel import mesh as mesh_mod
@@ -38,28 +40,41 @@ def loss_fn(params, lpips_params, cfg: heads.AvatarConfig,
     return l2 + lp, {"l2_loss": l2, "lpips_loss": lp, "generated": generated}
 
 
+def _loss_terms(trees, real_image, label, cfg, label_convention, mesh=None):
+    """(loss, l2, lpips) of `loss_fn` as one tensor (3,)."""
+    loss, aux = loss_fn(trees["params"], trees["lpips"], cfg, real_image,
+                        label, label_convention=label_convention, mesh=mesh)
+    return torch.stack((loss, aux["l2_loss"], aux["lpips_loss"]))
+
+
 def train_step(state: TrainState, lpips_params, cfg: heads.AvatarConfig,
                real_image: torch.Tensor, label: torch.Tensor,
                tune_iter: int, *, label_convention: str = "opencv", mesh=None
                ) -> dict[str, torch.Tensor]:
     """One Adam step in place on `state`; returns the step's loss terms as
-    detached 0-d tensors (no host sync here). Profiler ranges
+    detached 0-d tensors of their own (no host sync here). Profiler ranges
     (`utils.observability.annotate`): "train_step" holding "forward"
-    (`loss_fn`), "backward" and "optimizer" (the freeze gate, the join
-    over the data axis, Adam)."""
+    (`loss_fn`, or its graph's replay), "backward" (autograd; a replay
+    of the loss's backward graph) and "optimizer" (the freeze gate, the
+    join over the data axis, Adam)."""
+    # a data or model axis keeps its collectives eager; one rank has none
+    graphed = mesh is None or mesh.size == 1
     with annotate("train_step"):
         state.optimizer.zero_grad(set_to_none=True)
         with annotate("forward"):
-            loss, aux = loss_fn(state.params, lpips_params, cfg, real_image,
-                                label, label_convention=label_convention,
-                                mesh=mesh)
+            terms = graphs.loss(
+                "rgb_loss", _loss_terms,
+                {"params": state.params, "lpips": lpips_params}, real_image,
+                label, enabled=graphed,
+                static=(cfg, label_convention) if graphed
+                else (cfg, label_convention, mesh))
         with annotate("backward"):
-            loss.backward()
+            terms[0].backward()
         with annotate("optimizer"):
             apply_generator_freeze(state.params, state.step, tune_iter)
+            loss, l2, lp = terms.detach().unbind()
             metrics = mesh_mod.data_parallel_step(state.params, {
-                "loss": loss.detach(), "l2_loss": aux["l2_loss"].detach(),
-                "lpips_loss": aux["lpips_loss"].detach()}, mesh)
+                "loss": loss, "l2_loss": l2, "lpips_loss": lp}, mesh)
             state.optimizer.step()
         state.step += 1
     return metrics

@@ -1,15 +1,18 @@
-"""The port's inference stages as CUDA graphs (`core/graphs.py`) and the
-host constants kept on the card (`core/ops.fir_taps`,
-`ops.device_constant`).
+"""The port's inference stages and training losses as CUDA graphs
+(`core/graphs.py`) and the host constants kept on the card
+(`core/ops.fir_taps`, `ops.device_constant`).
 
 On the CPU: the cached FIR taps give the NumPy-built taps' outputs bit
 for bit at every (taps, gain, up/down) the configurations use; the graph
 helper runs eagerly and counts it; its keys; its bound, with a stand-in
-for the card's graphs that replays the stage on the CPU. Marked `gpu`
-(card only): replayed units against eager ones under
-`cudnn.deterministic`, equal or within `CAPTURE_RTOL`; the launch
-counters; parameters replaced and changed in place; a one-off partial
-batch; a capture that fails; peak memory.
+for the card's graphs that replays the stage on the CPU; the training
+path's keys, its eager routes, and eager → capture → replay through
+`train.rgb.train_step`, with a stand-in that replays the loss and its
+gradients on the CPU. Marked `gpu` (card only): replayed units against
+eager ones under `cudnn.deterministic`, equal or within `CAPTURE_RTOL`;
+the launch counters; parameters replaced and changed in place; a one-off
+partial batch; a capture that fails; peak memory. The training graphs'
+card tests are `tests/test_torch_train_graphs.py`.
 """
 
 import numpy as np
@@ -247,6 +250,417 @@ def test_graph_helper_keeps_its_bound():
                                "failed": 0}
     sg.reset()
     assert not sg._keys and not sg.stats()
+
+
+# -- the training path on the CPU ---------------------------------------------
+
+
+def _loss(params, x, scale):
+    y = (x @ params["w"]) * scale + params["b"]
+    return torch.stack((y.square().mean() + params["b"].sum(),
+                        y.mean()))
+
+
+def _trained_tree(seed=0, n=4):
+    tree = _tree(seed, n)
+    tree.requires_grad_(True)
+    return tree
+
+
+def test_training_keys_are_the_inference_keys_and_what_wants_a_gradient():
+    p, x = _trained_tree(), torch.randn((3, 4))
+    leaves = graphs._leaves(p, [])
+    k = graphs.train_key("l", _loss, p, (x,), (2.0,))
+    assert k == graphs.key("l", _loss, p, (x,), (2.0,)) + ((True, True),)
+    # the inference key as it was: the stage, the function, each leaf's
+    # address and layout, the inputs' shapes, the static, the modes
+    assert graphs.key("l", _loss, p, (x,), (2.0,)) == (
+        "l", _loss, tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                          for t in leaves),
+        ((x.shape, x.dtype, x.device),), (2.0,), graphs._flags())
+    assert graphs.train_key("l", _loss, p, (torch.randn((3, 4)),),
+                            (2.0,)) == k
+    with torch.no_grad():
+        p["w"].mul_(2.0)                          # Adam's update: in place
+    assert graphs.train_key("l", _loss, p, (x,), (2.0,)) == k
+    others = [
+        graphs.train_key("l", _loss, p, (torch.randn((5, 4)),), (2.0,)),
+        graphs.train_key("l", _loss, p, (x.double(),), (2.0,)),
+        graphs.train_key("l", _loss, _trained_tree(), (x,),
+                         (2.0,)),                # new params
+        graphs.train_key("l", _stage, p, (x,), (2.0,)),
+        graphs.train_key("m", _loss, p, (x,), (2.0,)),
+        graphs.train_key("l", _loss, p, (x,), (3.0,)),
+    ]
+    with torch.no_grad():
+        others.append(graphs.train_key("l", _loss, p, (x,), (2.0,)))
+    p["b"].requires_grad_(False)                 # no gradient wanted
+    others.append(graphs.train_key("l", _loss, p, (x,), (2.0,)))
+    assert len({k, *others}) == len(others) + 1
+
+
+class _CpuLossGraph:
+    """Stands in for the forward graph on the CPU: a replay runs the loss
+    again on the buffers, under autograd, and writes its terms in place."""
+
+    def __init__(self, fn, params, buffers, static, terms):
+        self.args = fn, params, buffers, static
+        self.terms, self.live = terms, None
+
+    def replay(self):
+        fn, params, buffers, static = self.args
+        with torch.enable_grad():
+            self.live = fn(params, *buffers, *static)
+        self.terms.copy_(self.live.detach())
+
+
+class _CpuGradGraph:
+    """Stands in for the backward graph: the gradients of the last forward
+    replay's terms under the cotangent buffer, written in place."""
+
+    def __init__(self, forward, wanted, cotangent, grads):
+        self.forward, self.wanted = forward, wanted
+        self.cotangent, self.grads = cotangent, grads
+
+    def replay(self):
+        got = torch.autograd.grad(self.forward.live, self.wanted,
+                                  self.cotangent, allow_unused=True)
+        for buf, g in zip(self.grads, got):
+            if buf is not None:
+                buf.copy_(g)
+        self.forward.live = None
+
+
+# the launches a stand-in's forward and backward "hold", in `COUNTERS`'
+# order (triplane, triplane_bwd, raymarch, raymarch_bwd)
+_FWD, _BWD = (1, 0, 2, 0), (0, 3, 0, 4)
+
+
+class _CpuTrainGraphs(graphs.TrainGraphs):
+    """`TrainGraphs` with the card's graphs stood in for: CPU inputs count
+    as the card's, the capture runs the loss and its gradients once to
+    lay out their buffers, and `fail` captures raise."""
+
+    def __init__(self, capacity=graphs.TRAIN_CAPACITY, fail=0):
+        super().__init__(capacity)
+        self.fail, self.captured, self.dropped = fail, 0, 0
+
+    @staticmethod
+    def _on_card(inputs):
+        return True
+
+    def _warm(self, fn, params, inputs, static):
+        return fn(params, *inputs, *static)
+
+    def _capture(self, fn, params, wanted, inputs, static):
+        self.captured += 1
+        if self.fail:
+            self.fail -= 1
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        buffers = [x.clone() for x in inputs]
+        live = fn(params, *buffers, *static)
+        grads = torch.autograd.grad(live, wanted, torch.ones_like(live),
+                                    allow_unused=True)
+        forward = _CpuLossGraph(fn, params, buffers, static,
+                                live.detach().clone())
+        cotangent = torch.empty_like(forward.terms)
+        backward = _CpuGradGraph(forward, wanted, cotangent,
+                                 [None if g is None else torch.empty_like(g)
+                                  for g in grads])
+        return graphs._TrainGraph(forward, backward, buffers, forward.terms,
+                                  cotangent, backward.grads, (_FWD, _BWD))
+
+    def _drop(self):
+        self.dropped += 1
+
+
+@pytest.fixture
+def not_capturing(monkeypatch):
+    """No capture under way (the CPU build cannot be asked)."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+
+
+def _grads(p):
+    return [None if t.grad is None else t.grad.clone() for t in
+            graphs._leaves(p, [])]
+
+
+def _step(tg, p, x, kind="l", **kw):
+    """One loss and its backward, as a training step issues them →
+    (terms, each leaf's gradient)."""
+    for t in graphs._leaves(p, []):
+        t.grad = None
+    terms = tg.loss(kind, _loss, p, x, static=(2.0,), **kw)
+    terms[0].backward()
+    return terms, _grads(p)
+
+
+def test_training_losses_run_eagerly_off_the_card_and_count_it():
+    tg = graphs.TrainGraphs()
+    p, x = _trained_tree(), torch.randn((3, 4))
+    want = _loss(p, x, 2.0)
+    for _ in range(3):
+        terms, _ = _step(tg, p, x)
+        assert torch.equal(terms, want)
+    assert tg.stats() == {"l": {"eager": 3, "captures": 0, "replays": 0,
+                                "failed": 0}}
+    assert not tg._keys                       # nothing kept off the card
+
+
+def test_training_graphs_capture_on_the_second_sighting_and_replay(
+        not_capturing):
+    tg = _CpuTrainGraphs()
+    p = _trained_tree()
+    xs = [torch.randn((3, 4)) for _ in range(4)]
+    before = (triplane.LAUNCHES, triplane.LAUNCHES_BWD, raymarch.LAUNCHES,
+              raymarch.LAUNCHES_BWD)
+    outs = []
+    for x in xs:
+        terms, grads = _step(tg, p, x)
+        want = _loss(p, x, 2.0)
+        want_grads = torch.autograd.grad(want[0], [p["w"], p["b"]])
+        assert torch.equal(terms, want.detach())
+        assert terms.requires_grad
+        for g, w in zip(grads, want_grads):
+            assert torch.equal(g, w)
+        outs.append(terms)
+    # the replays' terms are copies of their own, not the graph's buffer
+    assert len({t.data_ptr() for t in outs}) == 4
+    for x, t in zip(xs, outs):
+        assert torch.equal(t.detach(), _loss(p, x, 2.0).detach())
+    assert tg.stats()["l"] == {"eager": 1, "captures": 1, "replays": 2,
+                               "failed": 0}
+    assert tg.captured == 1
+    # each replay of either graph advances the counters by its launches
+    after = (triplane.LAUNCHES, triplane.LAUNCHES_BWD, raymarch.LAUNCHES,
+             raymarch.LAUNCHES_BWD)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 9, 6, 12)
+    # parameters changed in place: the same graphs read them anew
+    with torch.no_grad():
+        p["w"].mul_(0.5)
+    terms, _ = _step(tg, p, xs[0])
+    assert torch.equal(terms, _loss(p, xs[0], 2.0).detach())
+    assert tg.stats()["l"]["replays"] == 3
+    # new parameters: a new key, first eager
+    _step(tg, _trained_tree(seed=1), xs[0])
+    assert tg.stats()["l"]["eager"] == 2
+    (triplane.LAUNCHES, triplane.LAUNCHES_BWD, raymarch.LAUNCHES,
+     raymarch.LAUNCHES_BWD) = before
+
+
+@pytest.mark.parametrize("route", ["grad_off", "disabled", "capturing",
+                                   "hooked"])
+def test_training_graphs_stay_off_where_they_cannot_hold_the_step(
+        route, monkeypatch, not_capturing):
+    """Autograd off; a caller that says so (a mesh's collectives, a render
+    generator's draws); a capture already under way; a hook on a leaf."""
+    tg = _CpuTrainGraphs()
+    p, x = _trained_tree(), torch.randn((3, 4))
+    kw = {}
+    if route == "disabled":
+        kw["enabled"] = False
+    elif route == "capturing":
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+    elif route == "hooked":
+        p["w"].register_hook(lambda g: g * 4)
+    for _ in range(3):
+        if route == "grad_off":
+            with torch.no_grad():
+                terms = tg.loss("l", _loss, p, x, static=(2.0,))
+            assert not terms.requires_grad
+        else:
+            terms, grads = _step(tg, p, x, **kw)
+            want = torch.autograd.grad(_loss(p, x, 2.0)[0], p["w"])[0]
+            assert torch.equal(grads[0], want)
+        assert torch.equal(terms.detach(), _loss(p, x, 2.0).detach())
+    assert tg.stats()["l"] == {"eager": 3, "captures": 0, "replays": 0,
+                               "failed": 0}
+    assert tg.captured == 0 and not tg._keys
+
+
+def test_a_loss_whose_capture_fails_runs_eagerly_from_then_on(
+        not_capturing):
+    tg = _CpuTrainGraphs(fail=1)
+    p, x = _trained_tree(), torch.randn((3, 4))
+    for _ in range(4):
+        terms, grads = _step(tg, p, x)
+        assert torch.equal(terms, _loss(p, x, 2.0).detach())
+        assert torch.equal(grads[1], torch.autograd.grad(
+            _loss(p, x, 2.0)[0], p["b"])[0])
+    st = tg.stats()["l"]
+    assert (st["eager"], st["captures"], st["replays"], st["failed"]) \
+        == (4, 0, 0, 1)
+    assert "not permitted" in st["error"]
+    assert tg.captured == 1                   # never tried again
+
+
+def test_training_graphs_keep_their_own_bound_and_leave_the_stages_be(
+        monkeypatch, not_capturing):
+    """The process's stats hold both paths; the stages' counts and keys
+    are the inference path's alone."""
+    stages, train = _CpuStageGraphs(capacity=8), _CpuTrainGraphs(capacity=2)
+    monkeypatch.setattr(graphs, "_GRAPHS", stages)
+    monkeypatch.setattr(graphs, "_TRAIN", train)
+    p, x = _tree(), torch.randn((3, 4))
+    tp = _trained_tree()
+    for n in (3, 4, 5, 3):                     # three shapes, the first twice
+        xn = torch.randn((n, 4))
+        for _ in range(2):
+            _step(train, tp, xn)
+        with torch.no_grad():
+            graphs.run("s", _stage, p, x, static=(2.0,))
+    assert len(train._keys) <= 2 and train.dropped == 2
+    assert len(stages._keys) == 1
+    assert graphs.stats() == {
+        "s": {"eager": 1, "captures": 1, "replays": 2, "failed": 0},
+        "l": {"eager": 4, "captures": 4, "replays": 0, "failed": 0}}
+    graphs.reset()
+    assert not graphs.stats() and not train._keys and not stages._keys
+
+
+class _Event:
+    """Stands in for the card's event: a record and a wait, logged."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def record(self):
+        self.log.append("record")
+
+    def synchronize(self):
+        self.log.append("wait")
+
+
+def test_a_replayed_forward_waits_for_the_last_backward(not_capturing):
+    """The host runs at most a step ahead of the card: each replay of the
+    forward first waits for the event recorded after the last one."""
+    log = []
+
+    class Logged(_CpuTrainGraphs):
+        def _capture(self, *args):
+            graph = super()._capture(*args)
+            for name, g in (("forward", graph.forward),
+                            ("backward", graph.backward)):
+                replay = g.replay
+                g.replay = (lambda name=name, replay=replay:
+                            (log.append(name), replay()))
+            graph.done = _Event(log)
+            return graph
+
+    tg = Logged()
+    p, x = _trained_tree(), torch.randn((3, 4))
+    for _ in range(4):                        # eager, captured, replayed ×2
+        terms, _ = _step(tg, p, x)
+        assert torch.equal(terms.detach(), _loss(p, x, 2.0).detach())
+    assert log == ["wait", "forward", "record", "backward"] * 3
+
+
+def test_released_training_graphs_keep_their_counts_and_the_stages(
+        monkeypatch, not_capturing):
+    """`release_training` drops the training graphs and their keys (a
+    trainer that is done hands back the pool of its step's activations);
+    the counts stay, and the stages' graphs are left as they are."""
+    stages, train = _CpuStageGraphs(capacity=8), _CpuTrainGraphs()
+    monkeypatch.setattr(graphs, "_GRAPHS", stages)
+    monkeypatch.setattr(graphs, "_TRAIN", train)
+    p, x, tp = _tree(), torch.randn((3, 4)), _trained_tree()
+    for _ in range(3):
+        _step(train, tp, x)
+        with torch.no_grad():
+            graphs.run("s", _stage, p, x, static=(2.0,))
+    before = graphs.stats()
+    graphs.release_training()
+    assert not train._keys and train._pool is None and train.dropped == 1
+    assert graphs.stats() == before and len(stages._keys) == 1
+    _step(train, tp, x)                       # a key seen anew: eager
+    assert graphs.stats()["l"]["eager"] == before["l"]["eager"] + 1
+
+
+# the tiny avatar of `tests/test_torch_observability.py`
+def _tiny_cfg():
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.models.eg3d import generator as gen
+    from hfa_gp_tpu_torch.models.eg3d import networks as nets
+    from hfa_gp_tpu_torch.models.eg3d import renderer as rnd
+    return heads.AvatarConfig(size=32, dim_shape=4, eg3d=gen.EG3DConfig(
+        backbone=nets.BackboneConfig(img_resolution=16, img_channels=24,
+                                     channel_base=256, channel_max=32),
+        sr=nets.SRConfig(input_resolution=8, output_resolution=32,
+                         in_channels=8, block_channels=(16, 8)),
+        render=rnd.RenderConfig(depth_resolution=4,
+                                depth_resolution_importance=4,
+                                neural_rendering_resolution=8,
+                                decoder_hidden=16, decoder_output_dim=8,
+                                sampler_depth_window=2)))
+
+
+def _tiny_fit(cfg, steps, mesh=None):
+    """`steps` RGB training steps from one seeded state on batches of 2 →
+    [(loss terms, each leaf's gradient, each leaf's value)] a step."""
+    from hfa_gp_tpu_torch.core import camera as cam
+    from hfa_gp_tpu_torch.models import lpips
+    from hfa_gp_tpu_torch.models.avatar import heads
+    from hfa_gp_tpu_torch.train import rgb
+    from hfa_gp_tpu_torch.train.state import init_state
+    g = torch.Generator().manual_seed(0)
+    state = init_state(heads.init_avatar_rgb(g, cfg))
+    lp = ParamTree(lpips.init_lpips(g))
+    batches = [(torch.rand((2, cfg.size, cfg.size, 3), generator=g) * 2 - 1,
+                cam.flip_yz_label(cam.sample_camera_label(g, n=2)))
+               for _ in range(steps)]
+    out = []
+    for image, label in batches:
+        m = rgb.train_step(state, lp, cfg, image, label, 0, mesh=mesh)
+        leaves = list(state.params.parameters())
+        out.append(((m["loss"], m["l2_loss"], m["lpips_loss"]),
+                    [None if t.grad is None else t.grad.clone()
+                     for t in leaves],
+                    [t.detach().clone() for t in leaves]))
+    return out
+
+
+def test_replayed_fitting_steps_match_eager_ones(monkeypatch, not_capturing):
+    """`train.rgb.train_step` through the training path (eager, captured,
+    replayed, replayed) against four eager steps from the same state:
+    the same losses, gradients and parameters, and each step's returned
+    losses its own tensors."""
+    cfg = _tiny_cfg()
+    want = _tiny_fit(cfg, 4)                  # on the CPU: eager
+    train = _CpuTrainGraphs()
+    monkeypatch.setattr(graphs, "_TRAIN", train)
+    got = _tiny_fit(cfg, 4)
+    assert graphs.stats()["rgb_loss"] == {"eager": 1, "captures": 1,
+                                          "replays": 2, "failed": 0}
+    for (gl, gg, gv), (wl, wg, wv) in zip(got, want):
+        for a, b in zip(gl, wl):
+            assert torch.equal(a, b)
+        for a, b in zip(gg, wg):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+        for a, b in zip(gv, wv):
+            assert torch.equal(a, b)
+    losses = [l for step in got for l in step[0]]
+    assert len({l.data_ptr() for l in losses}) == len(losses)
+    assert len({float(step[0][0]) for step in got}) == 4
+
+
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_the_fitting_step_is_graphed_on_one_rank_alone(
+        n_data, monkeypatch, not_capturing):
+    """A mesh of one rank has no collectives (the CLIs pass one); a data
+    axis keeps the step eager."""
+    from hfa_gp_tpu_torch.parallel import mesh as mesh_mod
+    monkeypatch.setattr(graphs, "_TRAIN", _CpuTrainGraphs())
+    # no process group here: the join over the data axis stands aside
+    monkeypatch.setattr(mesh_mod, "data_parallel_step",
+                        lambda params, metrics, mesh: metrics)
+    _tiny_fit(_tiny_cfg(), 3, mesh=mesh_mod.Mesh(n_data=n_data))
+    st = graphs.stats()["rgb_loss"]
+    assert (st["eager"], st["captures"], st["replays"]) \
+        == ((1, 1, 1) if n_data == 1 else (3, 0, 0))
 
 
 # -- on the card --------------------------------------------------------------
