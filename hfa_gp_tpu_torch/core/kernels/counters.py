@@ -1,9 +1,10 @@
 """The launch counters of the hand-written kernels, in one table.
 
 Each kernel's wrapper module counts its launches in this process in
-`LAUNCHES` (forward) and `LAUNCHES_BWD` (backward); the sampler also
-counts, in `LAUNCHES_DECODE`, those of its forward launches that ran the
-decoder fused. `COUNTERS` names them all; the graph helper
+`LAUNCHES` (forward) and `LAUNCHES_BWD` (backward), the FIR its
+second-order launches (a gradient's gradient) in `LAUNCHES_BWD2`; the
+sampler also counts, in `LAUNCHES_DECODE`, those of its forward launches
+that ran the decoder fused. `COUNTERS` names them all; the graph helper
 (`core/graphs.py`) advances them at a replay and the card-side smoke test
 reads them. A new kernel's module adds its rows here.
 """
@@ -22,6 +23,7 @@ COUNTERS = {
     "flash_ce_bwd": (flash_ce, "LAUNCHES_BWD"),
     "upfirdn2d": (fir, "LAUNCHES"),
     "upfirdn2d_bwd": (fir, "LAUNCHES_BWD"),
+    "upfirdn2d_bwd2": (fir, "LAUNCHES_BWD2"),
     "triplane_sampler_decoder": (triplane, "LAUNCHES_DECODE"),
 }
 

@@ -10,9 +10,11 @@ the output once (its header says how).
 
 `core/ops.upfirdn2d` sends a CUDA tensor in fp32 or bf16 here and keeps
 CPU and float64 tensors on the plain version. On CUDA `upfirdn2d` is a
-`torch.autograd.Function` whose backward is the same kernel on the
-adjoint geometry (`adjoint`); the taps are constants and get no
-gradient.
+`torch.autograd.Function` whose backward is the same function on the
+adjoint geometry (`adjoint`); the adjoint's adjoint is the forward
+geometry, so the kernel is differentiable to any order (R1's gradient
+penalty takes the gradient of an input gradient). The taps are constants
+and get no gradient.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ import torch
 
 from . import build
 
-# Launches of the CUDA kernel in this process: forward (`upfirdn2d`) and
-# backward (from autograd)
+# Launches of the CUDA kernel in this process: forward (`upfirdn2d`),
+# backward (from autograd), and the backward's own backward and any order
+# above it (a gradient of a gradient)
 LAUNCHES = 0
 LAUNCHES_BWD = 0
+LAUNCHES_BWD2 = 0
 
 FACTORS = (1, 2)             # the up and down factors the kernel takes
 MAX_TAPS = 4                 # the kernel's largest kh and kw
@@ -139,26 +143,35 @@ def _launch(x: torch.Tensor, geom: Geometry) -> torch.Tensor:
     return y
 
 
+def _count(order: int) -> None:
+    global LAUNCHES, LAUNCHES_BWD, LAUNCHES_BWD2
+    if order == 0:
+        LAUNCHES += 1
+    elif order == 1:
+        LAUNCHES_BWD += 1
+    else:
+        LAUNCHES_BWD2 += 1
+
+
 class _UpFirDn2d(torch.autograd.Function):
-    """The kernel with itself, on the adjoint geometry, as its gradient."""
+    """The kernel on `geom`, with itself on the adjoint geometry as its
+    gradient: `order` 0 is the forward, 1 its backward, 2 and above the
+    backward's backward, each counted in its own counter."""
 
     @staticmethod
-    def forward(ctx, x, geom):
-        global LAUNCHES
-        ctx.geom, ctx.in_hw = geom, tuple(x.shape[2:])
+    def forward(ctx, x, geom, order):
+        ctx.geom, ctx.in_hw, ctx.order = geom, tuple(x.shape[2:]), order
         y = _launch(x, geom)
-        LAUNCHES += 1
+        _count(order)
         return y
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        global LAUNCHES_BWD
         if 1 not in (g.stride(1), g.stride(3)):
             g = g.contiguous()           # autograd's broadcast cotangents
-        dx = _launch(g, adjoint(ctx.geom, *ctx.in_hw))
-        LAUNCHES_BWD += 1
-        return dx, None
+        dx = _UpFirDn2d.apply(g, adjoint(ctx.geom, *ctx.in_hw),
+                              ctx.order + 1)
+        return dx, None, None
 
 
 def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, *, up: int = 1,
@@ -178,4 +191,4 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, *, up: int = 1,
     if x.dim() != 4:
         raise ValueError(f"upfirdn2d: x {tuple(x.shape)} is not (N, C, H, W)")
     geom = geometry(x.shape[2], x.shape[3], kernel, up, down, pad, gain)
-    return _UpFirDn2d.apply(x, geom)
+    return _UpFirDn2d.apply(x, geom, 0)

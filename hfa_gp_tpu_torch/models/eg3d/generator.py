@@ -20,6 +20,7 @@ import torch
 
 from ...core import camera as cam
 from ...core import graphs
+from ...core.kernels import triplane
 from ...parallel import mesh as mesh_mod
 from ...utils.observability import annotate
 from . import networks as nets
@@ -55,10 +56,12 @@ def init_generator(g: torch.Generator, cfg: EG3DConfig) -> dict:
 
 
 def mapping(params, cfg: EG3DConfig, z: torch.Tensor,
-            c: torch.Tensor | None, truncation_psi: float = 1.0
+            c: torch.Tensor | None, truncation_psi: float = 1.0, *,
+            update_emas: bool = False, w_avg_beta: float = 0.995
             ) -> torch.Tensor:
     return nets.mapping_apply(params["mapping"], cfg.mapping, cfg.num_ws, z,
-                              c, truncation_psi)
+                              c, truncation_psi, update_emas=update_emas,
+                              w_avg_beta=w_avg_beta)
 
 
 def _rays(_, c: torch.Tensor, res: int):
@@ -66,10 +69,12 @@ def _rays(_, c: torch.Tensor, res: int):
     return cam.generate_rays(cam2world, intrinsics, res)
 
 
-def _backbone(params, ws: torch.Tensor, cfg: EG3DConfig, noise_mode: str):
+def _backbone(params, ws: torch.Tensor, cfg: EG3DConfig, noise_mode: str,
+              noise_generator: torch.Generator | None = None):
     planes = nets.backbone_apply(params, cfg.backbone, ws,
                                  noise_mode=noise_mode,
-                                 compute_dtype=cfg.compute_dtype)
+                                 compute_dtype=cfg.compute_dtype,
+                                 generator=noise_generator)
     b, _, h, w = planes.shape
     planes = planes.reshape(b, 3, cfg.plane_channels, h, w)
     return planes.permute(0, 1, 3, 4, 2)                # (B, 3, H, W, C)
@@ -98,25 +103,31 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
               noise_mode: str = "const",
               render_generator: torch.Generator | None = None,
               neural_rendering_resolution: int | None = None,
-              mesh=None) -> dict[str, torch.Tensor]:
+              mesh=None,
+              noise_generator: torch.Generator | None = None
+              ) -> dict[str, torch.Tensor]:
     """ws (B, num_ws, 512) W+ latents; c (B, 25) OpenCV label.
 
-    noise_mode "const" or "none"; `render_generator` draws the depth
-    jitter (None: deterministic, the inference path). With a model axis
-    on `mesh` the ranks of its model group split each image's rays
-    (`renderer.render_rays`), which come back whole before the feature
-    image is formed; everything else runs replicated on each rank. The
-    three stages are the profiler ranges "backbone", "render" and
-    "superres" (`utils.observability.annotate`). Without a generator or a
-    model axis, the rays and each of the three stages replay as a CUDA
-    graph where `core.graphs` holds them (on the card, autograd off)."""
+    noise_mode "const" or "none", or "random" (GAN training) with the
+    backbone's noise drawn from `noise_generator`; `render_generator`
+    draws the depth jitter (None: deterministic, the inference path).
+    With a model axis on `mesh` the ranks of its model group split each
+    image's rays (`renderer.render_rays`), which come back whole before
+    the feature image is formed; everything else runs replicated on each
+    rank. The three stages are the profiler ranges "backbone", "render"
+    and "superres" (`utils.observability.annotate`). Without a generator
+    or a model axis, the rays and each of the three stages replay as a
+    CUDA graph where `core.graphs` holds them (on the card, autograd
+    off)."""
     res = neural_rendering_resolution or cfg.render.neural_rendering_resolution
-    graphed = render_generator is None and not mesh_mod.ray_shard(mesh)
+    graphed = render_generator is None and noise_generator is None \
+        and not mesh_mod.ray_shard(mesh)
     ray_origins, ray_directions = graphs.run("rays", _rays, None, c,
                                              static=(res,), enabled=graphed)
     with annotate("backbone"):
         planes = graphs.run("backbone", _backbone, params["backbone"], ws,
-                            static=(cfg, noise_mode), enabled=graphed)
+                            static=(cfg, noise_mode, noise_generator),
+                            enabled=graphed)
     with annotate("render"):
         feature_image, depth_image = graphs.run(
             "render", _render, params["decoder"], planes, ray_origins,
@@ -130,3 +141,24 @@ def synthesis(params, cfg: EG3DConfig, ws: torch.Tensor, c: torch.Tensor, *,
     return {"image": sr_image.permute(0, 2, 3, 1),
             "image_raw": feature_image[:, :3].permute(0, 2, 3, 1),
             "image_depth": depth_image}
+
+
+def planes(params, cfg: EG3DConfig, ws: torch.Tensor, *,
+           noise_mode: str = "const",
+           noise_generator: torch.Generator | None = None) -> torch.Tensor:
+    """ws → the tri-planes (B, 3, H, W, C) alone, inside the "backbone"
+    span, eagerly (GAN training's density regulariser)."""
+    with annotate("backbone"):
+        return _backbone(params["backbone"], ws, cfg, noise_mode,
+                         noise_generator)
+
+
+def sample_mixed(params, cfg: EG3DConfig, planes_: torch.Tensor,
+                 points: torch.Tensor) -> torch.Tensor:
+    """σ, the decoder's raw density, at points (B, M, 3) anywhere in the
+    box: the sampler kernel's plane average (K1; K2 in the backward), then
+    the decoder → (B, M, 1). EG3D's `sample_mixed` after its backbone."""
+    feats = triplane.sample_mean(planes_.contiguous(), points.contiguous(),
+                                 cfg.render.box_warp)
+    _, sigma = rnd.decoder_apply(params["decoder"], cfg.render, feats)
+    return sigma

@@ -143,8 +143,12 @@ def init_superresolution(g: torch.Generator, cfg: SRConfig) -> dict:
 
 def mapping_apply(params, cfg: MappingConfig, num_ws: int, z: torch.Tensor,
                   c: torch.Tensor | None,
-                  truncation_psi: float = 1.0) -> torch.Tensor:
-    """z (B, z_dim), c (B, 25) → ws (B, num_ws, w_dim)."""
+                  truncation_psi: float = 1.0, *,
+                  update_emas: bool = False,
+                  w_avg_beta: float = 0.995) -> torch.Tensor:
+    """z (B, z_dim), c (B, 25) → ws (B, num_ws, w_dim). With `update_emas`
+    (GAN training) the running mean of w is tracked in place first:
+    w_avg ← lerp(mean over the batch of w, w_avg, w_avg_beta)."""
     x = ops.normalize_2nd_moment(z)
     if cfg.c_dim > 0:
         if c is None:
@@ -158,6 +162,10 @@ def mapping_apply(params, cfg: MappingConfig, num_ws: int, z: torch.Tensor,
         x = ops.fully_connected(x, fc["weight"], fc["bias"],
                                 activation="lrelu",
                                 lr_multiplier=cfg.lr_multiplier)
+    if update_emas:
+        with torch.no_grad():
+            w_avg = params["w_avg"]
+            w_avg.copy_(x.detach().mean(dim=0).lerp(w_avg, w_avg_beta))
     if truncation_psi != 1.0:
         x = params["w_avg"] + truncation_psi * (x - params["w_avg"])
     return x[:, None, :].expand(-1, num_ws, -1)
@@ -171,21 +179,30 @@ def _styles(p, w: torch.Tensor) -> torch.Tensor:
 
 
 def synth_layer_apply(p, x: torch.Tensor, w: torch.Tensor, *, up: int = 1,
-                      fir, conv_clamp,
-                      noise_mode: str = "const") -> torch.Tensor:
+                      fir, conv_clamp, noise_mode: str = "const",
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
     """StyleGAN2 SynthesisLayer: modconv(+up) → noise → bias+lrelu+clamp.
 
-    noise_mode "const" adds the layer's stored noise, "none" skips it;
-    "random" (training) is not ported."""
+    noise_mode "const" adds the layer's stored noise, "none" skips it,
+    "random" (training) adds (B, 1, r, r) standard normal draws from
+    `generator`, on its device, times the layer's strength."""
     weight = p["weight"]
     y = ops.modulated_conv2d(x, weight, _styles(p, w), up=up,
                              padding=weight.shape[-1] // 2,
                              resample_filter=fir)
-    if noise_mode not in ("const", "none"):
+    if noise_mode not in ("const", "none", "random"):
         raise ValueError(f"noise_mode {noise_mode!r}")
     if "noise_strength" in p and noise_mode == "const":
         y = y + (p["noise_const"] * p["noise_strength"]).to(y.dtype)[None,
                                                                        None]
+    elif "noise_strength" in p and noise_mode == "random":
+        if generator is None:
+            raise ValueError("noise_mode 'random' draws from a generator")
+        b, _, h, w_ = y.shape
+        noise = torch.randn((b, 1, h, w_), generator=generator,
+                            device=generator.device).to(y.device)
+        y = y + (noise * p["noise_strength"]).to(y.dtype)
     return ops.bias_act(y, p["bias"], act="lrelu", clamp=conv_clamp)
 
 
@@ -200,10 +217,12 @@ def torgb_apply(p, x: torch.Tensor, w: torch.Tensor, *,
 def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
                 ws_block: torch.Tensor, *, fir, conv_clamp, up: bool,
                 noise_mode: str = "const",
-                compute_dtype: torch.dtype | None = None):
+                compute_dtype: torch.dtype | None = None,
+                generator: torch.Generator | None = None):
     """One skip-architecture SynthesisBlock; ws_block (B, 3, w_dim) holds
     the conv0 (if present), conv1 and torgb slots. NCHW in and out; x
-    runs in `compute_dtype` (None: as it comes), img in ws_block's dtype."""
+    runs in `compute_dtype` (None: as it comes), img in ws_block's dtype.
+    `generator` draws the noise of `noise_mode` "random", conv0's first."""
     w_i = 0
     x = p["const"][None].expand(ws_block.shape[0], -1, -1, -1) \
         if "const" in p else x
@@ -212,10 +231,12 @@ def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
     if "conv0" in p:
         x = synth_layer_apply(p["conv0"], x, ws_block[:, w_i],
                               up=2 if up else 1, fir=fir,
-                              conv_clamp=conv_clamp, noise_mode=noise_mode)
+                              conv_clamp=conv_clamp, noise_mode=noise_mode,
+                              generator=generator)
         w_i += 1
     x = synth_layer_apply(p["conv1"], x, ws_block[:, w_i], fir=fir,
-                          conv_clamp=conv_clamp, noise_mode=noise_mode)
+                          conv_clamp=conv_clamp, noise_mode=noise_mode,
+                          generator=generator)
     w_i += 1
     y = torgb_apply(p["torgb"], x, ws_block[:, w_i],
                     conv_clamp=conv_clamp).to(ws_block.dtype)
@@ -230,9 +251,12 @@ def block_apply(p, x: torch.Tensor | None, img: torch.Tensor | None,
 
 def backbone_apply(params, cfg: BackboneConfig, ws: torch.Tensor, *,
                    noise_mode: str = "const",
-                   compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+                   compute_dtype: torch.dtype | None = None,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
     """ws (B, num_ws, w_dim) → tri-plane stack (B, 96, 256, 256) NCHW, in
     ws's dtype whatever `compute_dtype` the synthesis chain runs in.
+    Under noise_mode "random" each layer draws its noise from `generator`,
+    in the order the layers run.
 
     Each block consumes `num_conv` new w's and its torgb reads the next
     block's first w; the last torgb has a slot of its own."""
@@ -252,7 +276,7 @@ def backbone_apply(params, cfg: BackboneConfig, ws: torch.Tensor, *,
         x, img = block_apply(params[f"b{res}"], x, img, ws_block,
                              fir=cfg.fir, conv_clamp=cfg.conv_clamp,
                              up=not is_first, noise_mode=noise_mode,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, generator=generator)
         w_idx += num_conv
     return img
 

@@ -5,7 +5,8 @@ A checkpoint is one file `{checkpoint_path}/{step:06d}`. For the avatar
 trainers' `TrainState` it holds {"params": state_dict, "optimizer":
 state_dict, "step": int}; for the arcface trainer's `ArcFaceState` the
 whole state: {"backbone", "batch_stats", "fc_weight", "optimizer",
-"fc_opt_state", "step"}. The file is named after the loop index the
+"fc_opt_state", "step"}; for EG3D's GAN trainer's `GANState` {"G", "D",
+"G_ema", "opt_G", "opt_D", "step"}. The file is named after the loop index the
 trainer passes (the state's step when it passes none); the saved `step`
 is the number of updates done, and resume takes it from the file, not the
 name.
@@ -31,10 +32,18 @@ from ..parallel import distributed
 from ..parallel.mesh import Mesh
 from ..utils.convert import ParamTree
 from .arcface import ArcFaceState
+from .eg3d_gan import GANState
 from .state import TrainState
 
+State = TrainState | ArcFaceState | GANState
 
-def _payload(state: TrainState | ArcFaceState) -> dict[str, Any]:
+
+def _payload(state: State) -> dict[str, Any]:
+    if isinstance(state, GANState):
+        return {"G": state.G.state_dict(), "D": state.D.state_dict(),
+                "G_ema": state.G_ema.state_dict(),
+                "opt_G": state.opt_G.state_dict(),
+                "opt_D": state.opt_D.state_dict(), "step": state.step}
     if isinstance(state, ArcFaceState):
         return {"backbone": state.backbone.state_dict(),
                 "batch_stats": state.batch_stats.state_dict(),
@@ -60,7 +69,7 @@ def _whole(shard: torch.Tensor, mesh: Mesh) -> torch.Tensor | None:
     return torch.cat(parts).cpu() if parts is not None else None
 
 
-def save(state: TrainState | ArcFaceState, checkpoint_path: str,
+def save(state: State, checkpoint_path: str,
          step: int | None = None, mesh: Mesh | None = None) -> str | None:
     """Write the checkpoint on the primary rank; returns its path there and
     None on the others. Every rank of `mesh` calls it."""
@@ -100,13 +109,20 @@ def _load(path: str, mmap: bool = False) -> dict[str, Any]:
                       mmap=mmap)
 
 
-def restore(path: str, state: TrainState | ArcFaceState,
-            mesh: Mesh | None = None) -> TrainState | ArcFaceState:
+def restore(path: str, state: State, mesh: Mesh | None = None) -> State:
     """Load the checkpoint file `path` into `state` (params, optimizer
     moments and step counts, step; for an `ArcFaceState` also the running
     moments, the table and the head's buffers: the rows of this rank's
-    shard on `mesh`) in place, onto the devices `state` lives on, and
-    return it."""
+    shard on `mesh`; for a `GANState` both networks, G_ema and both
+    Adams) in place, onto the devices `state` lives on, and return it."""
+    if isinstance(state, GANState):
+        ckpt = _load(path)
+        for k in ("G", "D", "G_ema"):
+            getattr(state, k).load_state_dict(ckpt[k])
+        state.opt_G.load_state_dict(ckpt["opt_G"])
+        state.opt_D.load_state_dict(ckpt["opt_D"])
+        state.step = int(ckpt["step"])
+        return state
     if isinstance(state, ArcFaceState):
         ckpt = _load(path, mmap=True)
         state.backbone.load_state_dict(ckpt["backbone"])

@@ -20,6 +20,7 @@ import re
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hfa_gp_tpu_torch.core import graphs, ops
 from hfa_gp_tpu_torch.core.kernels import build, fir
@@ -124,6 +125,48 @@ def test_the_adjoint_geometry_is_the_transpose(call):
     rhs = float((x.detach() * got).sum())
     assert abs(lhs - rhs) <= 1e-10 * abs(lhs)
     assert fir.adjoint(adj, *y.shape[2:]) == geom
+
+
+# the discriminator's FIRs (EG3D's resnet blocks): before the skip's 1x1
+# convolution, down 2; before conv1's stride-2 3x3, pad 2
+R1_CALLS = {"skip": (2, (1, 1)), "conv1": (1, (2, 2))}
+
+
+def _r1(fir_fn, x, w):
+    """R1 through a FIR: the logits' gradient in x (create_graph), then the
+    penalty's backward → (that gradient, w's and x's gradients)."""
+    x = x.detach().clone().requires_grad_(True)
+    w = w.detach().clone().requires_grad_(True)
+    logits = F.leaky_relu(F.conv2d(fir_fn(x), w), 0.2).square() \
+        .mean((1, 2, 3))
+    (gx,) = torch.autograd.grad(logits.sum(), x, create_graph=True)
+    gx.square().sum().backward()
+    return gx.detach(), w.grad, x.grad
+
+
+def _launches():
+    return fir.LAUNCHES, fir.LAUNCHES_BWD, fir.LAUNCHES_BWD2
+
+
+@pytest.mark.parametrize("call", sorted(R1_CALLS))
+def test_the_autograd_function_is_differentiable_twice(call, monkeypatch):
+    """R1 through `_UpFirDn2d` with the kernel's index arithmetic standing
+    in for the launch, against autograd through the plain version, in
+    float64: one forward launch, a backward one for the input gradient and
+    one for the penalty's way back to x, and one second-order launch."""
+    down, pad = R1_CALLS[call]
+    monkeypatch.setattr(fir, "_launch", _indexed)
+    x = _x((2, 3, 12, 12), dtype=torch.float64)
+    w = _x((4, 3, 3, 3), dtype=torch.float64, seed=2)
+    geom = fir.geometry(12, 12, FIR, 1, down, pad, 1.0)
+    n0 = _launches()
+    got = _r1(lambda t: fir._UpFirDn2d.apply(t, geom, 0), x, w)
+    assert tuple(a - b for a, b in zip(_launches(), n0)) == (1, 2, 1)
+    want = _r1(lambda t: ops.upfirdn2d_plain(t, FIR, down=down, pad=pad),
+               x, w)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12)
+    assert float(got[1].norm()) > 0 and float(got[2].norm()) > 0
 
 
 def test_cpu_and_float64_take_the_plain_version():
@@ -340,3 +383,33 @@ def test_every_fir_that_needs_a_gradient_launches_one_backward(cuda,
     out.square().mean().backward()
     assert fir.LAUNCHES - n0 == len(needing) == 28
     assert fir.LAUNCHES_BWD - n1 == sum(needing) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("call", sorted(R1_CALLS))
+def test_r1_runs_through_the_kernel_at_second_order(cuda, call, layout):
+    """R1's gradient of an input gradient through K9 against the plain
+    version at a discriminator block's shape: the input gradient, the
+    weights' and the input's gradients within 1e-5 of their largest
+    magnitude; the forward and first-order launches as a first-order
+    pass makes them, and the second-order counter counting the rest."""
+    down, pad = R1_CALLS[call]
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4, 64, 64, 64), generator=g).to(cuda) \
+        .contiguous(memory_format=LAYOUTS[layout])
+    w = torch.randn((32, 64, 3, 3), generator=g).to(cuda) / 24
+    n0 = _launches()
+    got = _r1(lambda t: ops.upfirdn2d(t, FIR, down=down, pad=pad), x, w)
+    assert tuple(a - b for a, b in zip(_launches(), n0)) == (1, 2, 1)
+    n0 = _launches()
+    want = _r1(lambda t: ops.upfirdn2d_plain(t, FIR, down=down, pad=pad),
+               x, w)
+    assert _launches() == n0
+    for what, a, b in zip(("grad", "w", "x"), got, want):
+        _check(a, b, float(b.abs().max()), 1e-5, (what, call, layout))
+    # a first-order pass launches as before and nothing at second order
+    n0 = _launches()
+    xk = x.clone().requires_grad_(True)
+    ops.upfirdn2d(xk, FIR, down=down, pad=pad).square().sum().backward()
+    assert tuple(a - b for a, b in zip(_launches(), n0)) == (1, 1, 0)

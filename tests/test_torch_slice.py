@@ -273,6 +273,7 @@ DEVICE_CLIS = {
     "cli.extract_audio": ["--wav", "a.wav", "--out", "aud.npy"],
     "cli.eval_verification": ["--synthetic"],
     "cli.eval_ijb": ["--image_path", "ijb"],
+    "cli.train_eg3d": [],
     "tools.fit_selfrecon": [],
 }
 
